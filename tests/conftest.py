@@ -37,6 +37,8 @@ def pytest_configure(config):
         "markers",
         "nightly: long-running physics-assertion tier (example --check "
         "runs, validation smokes); deselected unless --nightly is given")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where there is none")
 
 
 def pytest_collection_modifyitems(config, items):
