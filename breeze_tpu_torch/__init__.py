@@ -1,14 +1,19 @@
-"""breeze_tpu_torch: the anelastic moist LES of ``breeze_tpu`` in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (``sm_90a``).
+"""breeze_tpu_torch: ``breeze_tpu`` in PyTorch, with hand-written CUDA
+kernels for the NVIDIA H100 (``sm_90a``).
 
-The JAX package ``breeze_tpu`` is the reference this port is tested
-against; the port imports no JAX.  Plain tensor code runs wherever its
-tensors live; the two kernels (``kernels/tendency.py``,
-``kernels/columnar.py``) take their plain PyTorch version for CPU tensors and
-launch CUDA for CUDA tensors, built from ``csrc/`` at first use.
+Two paths are ported: the anelastic moist LES (BOMEX, ``ssp_rk3_step``) and
+the split-explicit compressible core (the dry bubble,
+``acoustic_rk3_step``).  The JAX package ``breeze_tpu`` is the reference
+this port is tested against; the port imports no JAX.  Plain tensor code
+runs wherever its tensors live; each kernel (``kernels/``) takes its plain
+PyTorch version for CPU tensors and launches CUDA for CUDA tensors, built
+from ``csrc/`` at first use.
 """
 
 from .advection import WENO
+from .dynamics.compressible import (CompressibleModel, CompressibleState,
+                                    SplitExplicitTimeDiscretization, acoustic_rk3_step,
+                                    compressible_initial_state, make_compressible_model)
 from .grid import BOUNDED, PERIODIC, Grid, Topology, make_grid
 from .model import (AtmosphereModel, State, compute_tendencies, diagnose,
                     initial_state, make_model, pressure_projection, stage_update)
@@ -20,9 +25,11 @@ from .thermo.saturation import WarmPhaseEquilibrium
 from .timesteppers import ssp_rk3_step
 
 __all__ = [
-    "AtmosphereModel", "BOUNDED", "FPlane", "Grid", "PERIODIC",
-    "SaturationAdjustment", "SmagorinskyLilly", "State",
-    "ThermodynamicConstants", "Topology", "WENO", "WarmPhaseEquilibrium",
-    "compute_tendencies", "diagnose", "initial_state", "make_grid",
+    "AtmosphereModel", "BOUNDED", "CompressibleModel", "CompressibleState",
+    "FPlane", "Grid", "PERIODIC", "SaturationAdjustment", "SmagorinskyLilly",
+    "SplitExplicitTimeDiscretization", "State", "ThermodynamicConstants",
+    "Topology", "WENO", "WarmPhaseEquilibrium",
+    "acoustic_rk3_step", "compressible_initial_state", "compute_tendencies",
+    "diagnose", "initial_state", "make_compressible_model", "make_grid",
     "make_model", "pressure_projection", "ssp_rk3_step", "stage_update",
 ]

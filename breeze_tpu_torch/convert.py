@@ -11,11 +11,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dynamics.compressible import CompressibleState
 from .model import State
-from .thermo.reference import ReferenceState
+from .thermo.reference import ExnerReferenceState, ReferenceState
 
 PROGNOSTICS = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
 REFERENCE_PROFILES = ("p_c", "rho_c", "T_c", "rho_f", "qv_c", "ql_c", "qi_c")
+COMPRESSIBLE_PROGNOSTICS = ("rho", "rho_u", "rho_v", "rho_w", "rho_theta")
+EXNER_PROFILES = ("p_c", "rho_c", "T_c", "theta_c", "exner_c", "rho_f", "qv_c")
 
 
 def state_from_numpy(arrays: dict, *, dtype: torch.dtype, device) -> State:
@@ -54,3 +57,36 @@ def reference_from_numpy(arrays: dict, *, surface_pressure: float,
         standard_pressure=float(standard_pressure),
         **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
            for k in REFERENCE_PROFILES})
+
+
+def compressible_state_from_numpy(arrays: dict, *, dtype: torch.dtype,
+                                  device) -> CompressibleState:
+    """A :class:`CompressibleState` from numpy arrays keyed by prognostic
+    name (``rho``, ``rho_u``, ``rho_v``, ``rho_w``, ``rho_theta``), plus an
+    optional ``time``."""
+    return CompressibleState(
+        **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
+           for k in COMPRESSIBLE_PROGNOSTICS},
+        time=float(arrays.get("time", 0.0)))
+
+
+def compressible_state_to_numpy(state: CompressibleState) -> dict:
+    """The state's prognostics (and ``time``) as numpy arrays."""
+    out = {k: getattr(state, k).detach().cpu().numpy() for k in COMPRESSIBLE_PROGNOSTICS}
+    out["time"] = np.asarray(state.time)
+    return out
+
+
+def exner_reference_from_numpy(arrays: dict, *, surface_pressure: float,
+                               surface_potential_temperature: float,
+                               standard_pressure: float, dtype: torch.dtype,
+                               device) -> ExnerReferenceState:
+    """An :class:`ExnerReferenceState` from numpy profiles (``p_c``,
+    ``rho_c``, ``T_c``, ``theta_c``, ``exner_c``, ``rho_f``, ``qv_c``), to pin
+    the port's reference columns to another package's."""
+    return ExnerReferenceState(
+        surface_pressure=float(surface_pressure),
+        surface_potential_temperature=float(surface_potential_temperature),
+        standard_pressure=float(standard_pressure),
+        **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
+           for k in EXNER_PROFILES})

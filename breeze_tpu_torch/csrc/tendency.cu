@@ -15,11 +15,7 @@
 // at centers; pass 2 reads it (z clamped = the wall mirror) and writes the
 // 3+K blended prognostics.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-
-#define HALO 3
-#define F32(x) ((float)(x))
+#include "weno.cuh"
 
 namespace {
 
@@ -35,59 +31,11 @@ struct TendArgs {
   float inv_dx, inv_dy, f_cor, prandtl, inv_prandtl, g_acc, alpha, dt, oma;
 };
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
-}
-
-// Padded window: k, j interior coordinates in [-HALO, n + HALO); i wraps.
-struct Win {
-  const float* p;
-  int nyp, nx;
-  __device__ __forceinline__ float operator()(int k, int j, int i) const {
-    return __ldg(p + ((size_t)(k + HALO) * nyp + (j + HALO)) * nx + wrap(i, nx));
-  }
-};
-
 // Padded column: k in [-HALO, nz + HALO).
 struct Col {
   const float* p;
   __device__ __forceinline__ float operator()(int k) const { return __ldg(p + k + HALO); }
 };
-
-__device__ __forceinline__ float sq(float x) { return x * x; }
-
-// WENO5-JS with common-denominator weights; NORM max-normalizes them with a
-// 1e-9 floor (scalars), momentum skips it (bounded velocities).
-template <bool NORM>
-__device__ __forceinline__ float weno5(float qm2, float qm1, float q0, float q1, float q2) {
-  const float s6 = F32(1.0 / 6.0), c13 = F32(13.0 / 12.0);
-  float p0 = (2.0f * qm2 - 7.0f * qm1 + 11.0f * q0) * s6;
-  float p1 = (-qm1 + 5.0f * q0 + 2.0f * q1) * s6;
-  float p2 = (2.0f * q0 + 5.0f * q1 - q2) * s6;
-  float b0 = c13 * sq(qm2 - 2.0f * qm1 + q0) + 0.25f * sq(qm2 - 4.0f * qm1 + 3.0f * q0);
-  float b1 = c13 * sq(qm1 - 2.0f * q0 + q1) + 0.25f * sq(qm1 - q1);
-  float b2 = c13 * sq(q0 - 2.0f * q1 + q2) + 0.25f * sq(3.0f * q0 - 4.0f * q1 + q2);
-  float e0 = b0 + F32(1e-6), e1 = b1 + F32(1e-6), e2 = b2 + F32(1e-6);
-  if (NORM) {
-    float inv_m = 1.0f / fmaxf(e0, fmaxf(e1, e2));
-    e0 = fmaxf(e0 * inv_m, F32(1e-9));
-    e1 = fmaxf(e1 * inv_m, F32(1e-9));
-    e2 = fmaxf(e2 * inv_m, F32(1e-9));
-  }
-  float a0 = F32(0.1) * sq(e1 * e2);
-  float a1 = F32(0.6) * sq(e0 * e2);
-  float a2 = F32(0.3) * sq(e0 * e1);
-  return (a0 * p0 + a1 * p1 + a2 * p2) / (a0 + a1 + a2);
-}
-
-// Upwind WENO5 at an interface; c[0..5] are the cells at offsets -2..3 from
-// the interface's left cell.  sign >= 0 takes the left-biased stencil, else
-// the mirrored one cell(1 - o).
-template <bool NORM>
-__device__ __forceinline__ float weno_sel(const float c[6], float sign) {
-  if (sign >= 0.0f) return weno5<NORM>(c[0], c[1], c[2], c[3], c[4]);
-  return weno5<NORM>(c[5], c[4], c[3], c[2], c[1]);
-}
 
 // ---- pass 1: eddy viscosity at centers -----------------------------------
 __global__ void __launch_bounds__(256) smagorinsky_nu_kernel(TendArgs a) {
@@ -147,67 +95,8 @@ __global__ void __launch_bounds__(256) fused_tendency_kernel(TendArgs a) {
   auto RU = [&](int kk, int jj, int ii) { return U(kk, jj, ii) * colc(kk); };
   auto RV = [&](int kk, int jj, int ii) { return V(kk, jj, ii) * colc(kk); };
   auto RW = [&](int kk, int jj, int ii) { return W(kk, jj, ii) * colf(kk); };
-  float q[6];
-
-  // ---- u at (zc, yc, xf) ---------------------------------------------------
-  auto fu_x = [&](int c) {       // x-center c
-    float mf = 0.5f * (RU(k, j, c) + RU(k, j, c + 1));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, j, c + o);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fu_y = [&](int jf) {      // (yf, xf) corner
-    float mf = 0.5f * (RV(k, jf, i) + RV(k, jf, i - 1));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, jf + o - 1, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fu_z = [&](int kf) {      // (zf, xf) edge
-    float mf = 0.5f * (RW(kf, j, i) + RW(kf, j, i - 1));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = U(kf + o - 1, j, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  float du = (fu_x(i) - fu_x(i - 1)) * idx;
-  du = du + (fu_y(j + 1) - fu_y(j)) * idy;
-  du = du + (fu_z(k + 1) - fu_z(k)) * izc;
-
-  // ---- v at (zc, yf, xc) ---------------------------------------------------
-  auto fv_x = [&](int xf) {
-    float mf = 0.5f * (RU(k, j, xf) + RU(k, j - 1, xf));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, j, xf + o - 1);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fv_y = [&](int c) {       // y-center c
-    float mf = 0.5f * (RV(k, c, i) + RV(k, c + 1, i));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, c + o, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fv_z = [&](int kf) {
-    float mf = 0.5f * (RW(kf, j, i) + RW(kf, j - 1, i));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = V(kf + o - 1, j, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  float dv = (fv_x(i + 1) - fv_x(i)) * idx;
-  dv = dv + (fv_y(j) - fv_y(j - 1)) * idy;
-  dv = dv + (fv_z(k + 1) - fv_z(k)) * izc;
-
-  // ---- w at (zf, yc, xc) ---------------------------------------------------
-  auto fw_x = [&](int xf) {
-    float mf = 0.5f * (RU(k, j, xf) + RU(k - 1, j, xf));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, j, xf + o - 1);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fw_y = [&](int yf) {
-    float mf = 0.5f * (RV(k, yf, i) + RV(k - 1, yf, i));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, yf + o - 1, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  auto fw_z = [&](int c) {       // z-center c
-    float mf = 0.5f * (RW(c, j, i) + RW(c + 1, j, i));
-    for (int o = -2; o <= 3; ++o) q[o + 2] = W(c + o, j, i);
-    return mf * weno_sel<false>(q, mf);
-  };
-  float dw = (fw_x(i + 1) - fw_x(i)) * idx;
-  dw = dw + (fw_y(j + 1) - fw_y(j)) * idy;
-  dw = dw + (fw_z(k) - fw_z(k - 1)) * izf;
+  float du, dv, dw;
+  momentum_divs(RU, RV, RW, U, V, W, k, j, i, idx, idy, izc, izf, du, dv, dw);
 
   float g[5];
   g[0] = -du;
@@ -221,6 +110,7 @@ __global__ void __launch_bounds__(256) fused_tendency_kernel(TendArgs a) {
   g[2] = -dw + 0.5f * (B(k - 1, j, i) + B(k, j, i));
 
   // ---- scalars: shared mass fluxes, max-normalized weights ----------------
+  float q[6];
   const float* scal[2] = {a.th, a.qt};
   for (int s = 0; s < a.K; ++s) {
     const Win C{scal[s], nyp, nx};

@@ -1,0 +1,405 @@
+"""The split-explicit compressible core: prognostic density, the dry EOS,
+WS-RK3 outer stages around acoustic substeps.
+
+Port of ``breeze_tpu/dynamics/compressible.py`` on its dry, flat,
+potential-temperature path:
+
+- Wicker–Skamarock RK3 stages β = (1/3, 1/2, 1); the slow tendencies
+  (WENO5 advection, Coriolis, the frozen horizontal pressure gradient and
+  the vertical stage-entry imbalance) are evaluated once per stage at the
+  stage-entry state U^L;
+- the acoustic substeps (``kernels/acoustic.py``) advance the
+  perturbations about U^L, which start each stage at Uⁿ − U^L;
+- U^(k) = U^L + the perturbations.
+
+The slow tendencies run the momentum and scalar WENO5 kernels
+(``kernels/momentum.py``, ``kernels/advection.py``) on windows padded by
+``fields.pad``.  Everything else is plain PyTorch on the grid's device.
+
+Envelope (``make_compressible_model`` raises ``NotImplementedError``
+outside it): periodic x and y, bounded z; WENO5 advection (momentum not
+bounds-preserving); Coriolis ``None`` or :class:`FPlane`; no moisture,
+closure, forcings, boundary fluxes or terrain; the potential-temperature
+formulation; float32 substep storage; thermal or no divergence damping
+through ``damping_coefficient``; the proportional substep plan with N
+from ``acoustic_cfl``; no sponge.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from .. import fields as fl
+from ..advection import WENO
+from ..grid import Grid, Topology
+from ..kernels.acoustic import AcousticConfig, Perturbations, ZColumns, acoustic_substeps
+from ..kernels.advection import div_rho_u_c
+from ..kernels.momentum import momentum_div
+from ..kernels.weno import H
+from ..ops import StencilOps
+from ..physics.coriolis import FPlane, coriolis_terms
+from ..thermo.constants import ThermodynamicConstants
+from ..thermo.reference import ExnerReferenceState, make_exner_reference_state
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NoDivergenceDamping:
+    """No acoustic divergence damping."""
+
+
+@dataclasses.dataclass(frozen=True)
+class ThermalDivergenceDamping:
+    """Klemp, Skamarock & Ha (2018) divergence damping with δτ(ρθ)/θᴸ as
+    the divergence proxy."""
+
+    coefficient: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitExplicitTimeDiscretization:
+    """Split-explicit (HEVI) controls (``breeze_tpu``'s): ``acoustic_cfl``
+    sizes the substep count N from Δt; ``forward_weight`` is the CN
+    off-centring ω; ``damping_coefficient`` the thermal divergence damping
+    (0 for none).  ``substeps``, ``damping``, ``substep_floattype``,
+    ``sponge`` and ``substep_distribution`` exist for the reference's
+    signature; the port takes only their defaults (the ``proportional``
+    substep plan)."""
+
+    substeps: int | None = None
+    acoustic_cfl: float = 0.5
+    forward_weight: float = 0.65
+    damping_coefficient: float = 0.1
+    reference_sound_temperature: float = 300.0
+    substep_floattype: str | None = None
+    damping: Any = None
+    sponge: Any = None
+    substep_distribution: str = "proportional"
+
+    def damping_strategy(self):
+        if self.damping_coefficient:
+            return ThermalDivergenceDamping(self.damping_coefficient)
+        return NoDivergenceDamping()
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressibleState:
+    """Prognostics: density ρ, momenta on their faces, ρθ at centers."""
+
+    rho: torch.Tensor
+    rho_u: torch.Tensor
+    rho_v: torch.Tensor
+    rho_w: torch.Tensor
+    rho_theta: torch.Tensor
+    time: float = 0.0
+
+    def replace(self, **kw) -> "CompressibleState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressibleModel:
+    grid: Grid
+    reference: ExnerReferenceState
+    constants: ThermodynamicConstants
+    momentum_advection: WENO
+    scalar_advection: WENO
+    coriolis: Any
+    time_discretization: SplitExplicitTimeDiscretization
+    p_standard: float
+    acoustic_config: AcousticConfig
+    z_columns: ZColumns
+
+
+def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
+                    **excluded):
+    problems = [f"{name} is not ported" for name, val in excluded.items()
+                if val not in (None, (), "potential_temperature")]
+    if grid.topologies() != (Topology.BOUNDED, Topology.PERIODIC, Topology.PERIODIC):
+        problems.append("x and y must be periodic and z bounded")
+    if not (isinstance(momentum_advection, WENO) and momentum_advection.order == 5
+            and not momentum_advection.bounds_preserving):
+        problems.append("momentum advection must be WENO(5) without bounds preservation")
+    if not (isinstance(scalar_advection, WENO) and scalar_advection.order == 5):
+        problems.append("scalar advection must be WENO(5)")
+    if coriolis is not None and not isinstance(coriolis, FPlane):
+        problems.append("Coriolis must be None or FPlane")
+    if not isinstance(td, SplitExplicitTimeDiscretization):
+        problems.append("only the split-explicit time discretization is ported")
+    else:
+        if td.substeps is not None:
+            problems.append("a fixed substep count is not ported (acoustic_cfl sizes it)")
+        if td.damping is not None:
+            problems.append("a damping strategy is not ported (damping_coefficient "
+                            "gives thermal damping or none)")
+        if td.substep_distribution != "proportional":
+            problems.append("only the proportional substep plan is ported")
+        if td.substep_floattype is not None:
+            problems.append("substep_floattype is not ported (float32 carries only)")
+        if td.sponge is not None:
+            problems.append("the upper sponge is not ported")
+    if problems:
+        raise NotImplementedError("outside the ported envelope: " + "; ".join(problems))
+
+
+def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None = None,
+                            reference: ExnerReferenceState | None = None,
+                            advection=None, momentum_advection=None,
+                            scalar_advection=None, coriolis=None, closure=None,
+                            forcings=(), boundary_fluxes=None,
+                            time_discretization=None, microphysics=None,
+                            terrain=None, formulation: str = "potential_temperature",
+                            surface_pressure: float = 101325.0,
+                            reference_potential_temperature=300.0,
+                            reference_vapor_mass_fraction=None,
+                            p_standard: float = 1.0e5) -> CompressibleModel:
+    """Model factory (``breeze_tpu``'s signature): builds the discretely
+    balanced reference column and the kernels' columns on the grid's
+    device.  ``advection`` serves momentum and scalars unless they are
+    given apart."""
+    if advection is not None:
+        momentum_advection = momentum_advection or advection
+        scalar_advection = scalar_advection or advection
+    scalar_advection = scalar_advection or momentum_advection
+    td = time_discretization or SplitExplicitTimeDiscretization()
+    _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
+                    closure=closure, forcings=tuple(forcings),
+                    boundary_fluxes=boundary_fluxes, microphysics=microphysics,
+                    terrain=terrain, formulation=formulation,
+                    reference_vapor_mass_fraction=reference_vapor_mass_fraction)
+    constants = constants or ThermodynamicConstants()
+    if reference is None:
+        reference = make_exner_reference_state(
+            grid, constants, surface_pressure=surface_pressure,
+            potential_temperature=reference_potential_temperature,
+            standard_pressure=p_standard)
+    strategy = td.damping_strategy()
+    nz = grid.nz
+    # 1/Δz from the float64 spacings, as the TPU kernels take them
+    inv = lambda dz: torch.tensor([1.0 / d for d in dz], dtype=grid.dtype,
+                                  device=grid.device)
+    return CompressibleModel(
+        grid=grid, reference=reference, constants=constants,
+        momentum_advection=momentum_advection, scalar_advection=scalar_advection,
+        coriolis=coriolis, time_discretization=td, p_standard=p_standard,
+        acoustic_config=AcousticConfig(
+            dx=float(grid.dx), dy=float(grid.dy), omega=float(td.forward_weight),
+            g_acc=float(constants.gravitational_acceleration),
+            damping=float(getattr(strategy, "coefficient", 0.0))),
+        z_columns=ZColumns(dz_c=grid.dz_c, dz_f=grid.dz_f[:nz],
+                           inv_dzc=inv(grid.dz_c_meta), inv_dzf=inv(grid.dz_f_meta[:nz])))
+
+
+def compressible_initial_state(model: CompressibleModel, theta=None, u=None,
+                               v=None, w=None, rho=None,
+                               pressure_balanced: bool = True) -> CompressibleState:
+    """The state from θ (and optional velocities, density) against the
+    reference column.  By default the density is pressure-balanced,
+    ρ = ρᵣθᵣ/θ, so that ρθ, and with it the EOS pressure, is the
+    reference's and a θ perturbation raises no acoustic noise."""
+    g = model.grid
+    ref = model.reference
+    theta_arr = fl.full(g, theta, ref.theta_col)
+    if rho is not None:
+        rho_arr = fl.full(g, rho, 0.0)
+    elif pressure_balanced:
+        rho_arr = ref.rho_col * ref.theta_col / theta_arr
+    else:
+        rho_arr = fl.full(g, ref.rho_col, 0.0)
+    rho_f = 0.5 * (rho_arr + torch.cat([rho_arr[:1], rho_arr[:-1]], 0))
+    rho_u, rho_v, rho_w = fl.enforce_wall_normals(
+        g, rho_arr * fl.full(g, u, 0.0), rho_arr * fl.full(g, v, 0.0),
+        rho_f * fl.full(g, w, 0.0))
+    return CompressibleState(rho=rho_arr, rho_u=rho_u, rho_v=rho_v, rho_w=rho_w,
+                             rho_theta=rho_arr * theta_arr)
+
+
+# ---------------------------------------------------------------------------
+# EOS and diagnostics
+# ---------------------------------------------------------------------------
+
+def eos_pressure(model: CompressibleModel, rho_theta):
+    """Dry EOS in closed form: p = pˢᵗ (Rᵈ ρθ / pˢᵗ)^γ."""
+    c = model.constants
+    cpd = c.dry_air.heat_capacity
+    gamma = cpd / (cpd - c.Rd)
+    p_st = model.p_standard
+    return p_st * (c.Rd * rho_theta / p_st) ** gamma
+
+
+class CompAux(NamedTuple):
+    u: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    theta: torch.Tensor
+    p: torch.Tensor
+    T: torch.Tensor
+
+
+def compressible_diagnose(model: CompressibleModel,
+                          state: CompressibleState) -> CompAux:
+    """u = ρu/ρ̄ᶠ (ρ averaged to each face), θ = ρθ/ρ, p from the EOS,
+    T = p/(Rᵈρ)."""
+    g = model.grid
+    so = StencilOps(g, halo=1)
+    rho_pad = fl.pad(state.rho, g, fl.CCC, halo=1)
+    rho_c = so.v(rho_pad)
+    u = state.rho_u / (0.5 * (rho_c + so.v(rho_pad, dx=-1)))
+    v = state.rho_v / (0.5 * (rho_c + so.v(rho_pad, dy=-1)))
+    w = state.rho_w / (0.5 * (rho_c + so.v(rho_pad, dz=-1)))
+    p = eos_pressure(model, state.rho_theta)
+    return CompAux(u=u, v=v, w=w, theta=state.rho_theta / state.rho, p=p,
+                   T=p / (model.constants.Rd * state.rho))
+
+
+# ---------------------------------------------------------------------------
+# Slow tendencies
+# ---------------------------------------------------------------------------
+
+class SlowTendencies(NamedTuple):
+    rho: torch.Tensor
+    rho_u: torch.Tensor
+    rho_v: torch.Tensor
+    rho_w: torch.Tensor
+    rho_theta: torch.Tensor
+
+
+def slow_tendencies(model: CompressibleModel, state: CompressibleState,
+                    aux: CompAux) -> SlowTendencies:
+    """Gˢ at the stage-entry state: advection (the two WENO5 kernels),
+    Coriolis, the frozen horizontal ∇p^L, and for ρw the stage-entry
+    imbalance −∂z(p^L − pᵣ) − g(ρ^L − ρᵣ) with the reference's own discrete
+    face operator.  No acoustic pressure gradient or buoyancy: those are
+    the fast part."""
+    g = model.grid
+    ref = model.reference
+    so = StencilOps(g, halo=1)
+    inv_dx, inv_dy = float(1.0 / g.dx), float(1.0 / g.dy)
+    pz = lambda a, loc: fl.pad(a, g, loc, halo=H, axes=(0, 1))
+    p1 = lambda a, loc: fl.pad(a, g, loc, halo=1)
+    pzu, pzv, pzw = pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC)
+
+    adv_u, adv_v, adv_w = momentum_div(
+        pz(state.rho_u, fl.CCF), pz(state.rho_v, fl.CFC), pz(state.rho_w, fl.FCC),
+        pzu, pzv, pzw, model.z_columns.inv_dzc, model.z_columns.inv_dzf, inv_dx, inv_dy)
+    rho_u_pad = p1(state.rho_u, fl.CCF)
+    rho_v_pad = p1(state.rho_v, fl.CFC)
+    rho_w_pad = p1(state.rho_w, fl.FCC)
+    cor_x, cor_y, cor_z = coriolis_terms(model.coriolis, so, rho_u_pad, rho_v_pad,
+                                         rho_w_pad)
+    G_rho = -so.div_c(rho_u_pad, rho_v_pad, rho_w_pad)
+    G_rho_theta = div_rho_u_c(pz(aux.theta, fl.CCC), pzu, pzv, pzw,
+                              pz(state.rho, fl.CCC), model.z_columns.inv_dzc, inv_dx, inv_dy,
+                              bounds=model.scalar_advection.bounds_preserving)
+
+    # frozen horizontal PGF (pᵣ depends on z alone, so ∂x p^L = ∂x(p^L − pᵣ))
+    p_pad = p1(aux.p, fl.CCC)
+    G_rho_u = -adv_u - cor_x - so.dx_cf(p_pad)
+    G_rho_v = -adv_v - cor_y - so.dy_cf(p_pad)
+    pp_pad = p1(aux.p - ref.p_col, fl.CCC)
+    rp_pad = p1(state.rho - ref.rho_col, fl.CCC)
+    imbalance = (-so.dz_cf(pp_pad)
+                 - model.constants.gravitational_acceleration * so.iz_cf(rp_pad))
+    G_rho_w = -adv_w - cor_z + imbalance
+    return SlowTendencies(rho=G_rho, rho_u=G_rho_u, rho_v=G_rho_v,
+                          rho_w=G_rho_w, rho_theta=G_rho_theta)
+
+
+# ---------------------------------------------------------------------------
+# The fast part
+# ---------------------------------------------------------------------------
+
+def sound_speed(model: CompressibleModel) -> float:
+    c = model.constants
+    cpd = c.dry_air.heat_capacity
+    gamma = cpd / (cpd - c.Rd)
+    return math.sqrt(gamma * c.Rd * model.time_discretization.reference_sound_temperature)
+
+
+def substep_count(model: CompressibleModel, dt: float) -> int:
+    """N ≈ ⌈Δt c_s / (CFL · Δx_min)⌉."""
+    td = model.time_discretization
+    g = model.grid
+    return max(1, math.ceil(dt * sound_speed(model) / (td.acoustic_cfl * min(g.dx, g.dy))))
+
+
+class StageCaches(NamedTuple):
+    """Per-stage linearization: θᴸ at centers and z-faces and
+    Cᴸ = ∂p/∂(ρθ) = γRᵈΠᴸ."""
+
+    theta_L: torch.Tensor
+    theta_L_zf: torch.Tensor
+    C_L: torch.Tensor
+
+
+def stage_caches(model: CompressibleModel, state: CompressibleState,
+                 aux: CompAux) -> StageCaches:
+    c = model.constants
+    Rm, cpm = c.Rd, c.dry_air.heat_capacity
+    gamma = cpm / (cpm - Rm)
+    kappa = Rm / cpm
+    Pi_L = (aux.p / model.p_standard) ** kappa
+    th = aux.theta
+    th_zf = 0.5 * (th + torch.cat([th[:1], th[:-1]], 0))
+    return StageCaches(theta_L=th, theta_L_zf=th_zf, C_L=gamma * Rm * Pi_L)
+
+
+WS_RK3_BETAS = (1.0 / 3.0, 1.0 / 2.0, 1.0)
+
+
+def stage_substep_plan(N: int, dt: float):
+    """Per-stage ``(n_tau, dtau)`` of the ``proportional`` plan:
+    Nτ = ⌈βN⌉, Δτ = βΔt/Nτ."""
+    plan = []
+    for beta in WS_RK3_BETAS:
+        n_tau = max(1, math.ceil(beta * N - 1e-9))
+        plan.append((n_tau, beta * dt / n_tau))
+    return tuple(plan)
+
+
+def stage_perturbations(state_n: CompressibleState,
+                        state: CompressibleState) -> Perturbations:
+    """The stage rewind: perturbations Uⁿ − U^L, sums zero."""
+    zero = torch.zeros_like(state.rho)
+    return Perturbations(
+        rho=state_n.rho - state.rho, rho_u=state_n.rho_u - state.rho_u,
+        rho_v=state_n.rho_v - state.rho_v, rho_w=state_n.rho_w - state.rho_w,
+        rho_theta=state_n.rho_theta - state.rho_theta,
+        sum_rho_u=zero, sum_rho_v=zero, sum_rho_w=zero)
+
+
+def recover(model: CompressibleModel, state: CompressibleState,
+            pert: Perturbations) -> CompressibleState:
+    """U^(k) = U^L + the perturbations, the bottom-wall ρw pinned."""
+    rho_u, rho_v, rho_w = fl.enforce_wall_normals(
+        model.grid, state.rho_u + pert.rho_u, state.rho_v + pert.rho_v,
+        state.rho_w + pert.rho_w)
+    return state.replace(rho=state.rho + pert.rho, rho_u=rho_u, rho_v=rho_v,
+                         rho_w=rho_w, rho_theta=state.rho_theta + pert.rho_theta)
+
+
+def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
+                      dt: float) -> CompressibleState:
+    """One Δt of WS-RK3 with acoustic substeps (``breeze_tpu``'s
+    ``acoustic_rk3_step`` without terrain, scalars or implicit diffusion).
+    Each stage: diagnose, caches, slow tendencies, the substeps with the
+    first substep's pressure gradient gated when the stage has more than
+    one, and the recovery."""
+    dt = float(dt)
+    plan = stage_substep_plan(substep_count(model, dt), dt)
+    state_n = state
+    for n_tau, dtau in plan:
+        aux = compressible_diagnose(model, state)
+        caches = stage_caches(model, state, aux)
+        G = slow_tendencies(model, state, aux)
+        pert = acoustic_substeps(model.acoustic_config, model.z_columns,
+                                 caches, G, stage_perturbations(state_n, state),
+                                 dtau, n_tau, gate_first=n_tau > 1)
+        state = recover(model, state, pert)
+    return state.replace(time=state.time + dt)

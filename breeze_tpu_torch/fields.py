@@ -61,6 +61,18 @@ def pad(a: torch.Tensor, grid: Grid, loc, halo: int,
     return out
 
 
+def full(grid: Grid, val, default) -> torch.Tensor:
+    """A contiguous ``grid.shape`` field from ``None`` (``default``), a
+    callable of the cell centers ``(x, y, z)``, or anything broadcastable,
+    in the grid's dtype on its device."""
+    if val is None:
+        val = default
+    elif callable(val):
+        val = val(*grid.xyz_c())
+    t = torch.as_tensor(val, dtype=grid.dtype, device=grid.device)
+    return t.expand(grid.shape).contiguous()
+
+
 def enforce_wall_normals(grid: Grid, rho_u, rho_v, rho_w):
     """Zero ρw on the bottom wall face of a bounded z (stored face 0; the
     top one is implicit), leaving the inputs untouched.  The port's models

@@ -2,9 +2,10 @@
 
 All sources in ``breeze_tpu_torch/csrc/`` go into one shared library with a
 plain C interface, compiled for ``sm_90a`` at first use into
-``breeze_tpu_torch/_build/`` (listed in ``.gitignore``).  The file name
-carries a hash of the sources and flags, so an edited source is rebuilt.
-A failed build raises with nvcc's output.
+``breeze_tpu_torch/_build/`` (listed in ``.gitignore``): one nvcc process per
+``.cu`` file, all started together, then one link.  The file name carries a
+hash of the sources and flags, so an edited source is rebuilt.  A failed
+build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _library = None
 
@@ -53,15 +54,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f".{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    log = [proc.communicate()[0] for _, proc in procs]   # wait for every one
+    for (cmd, proc), out in zip(procs, log):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *(str(o) for o in objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    (BUILD_DIR / f"{lib.name}.log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
+    (BUILD_DIR / f"{lib.name}.log").write_text("".join(log))
     os.replace(tmp, lib)
     return lib
 
@@ -72,6 +86,12 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+#: The entry points that take (pointers, ints, floats, stream) arrays.
+ARRAY_ENTRY_POINTS = ("breeze_fused_tendency", "breeze_momentum_div",
+                      "breeze_div_rho_u_c", "breeze_acoustic_column",
+                      "breeze_acoustic_damp")
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _library
@@ -80,9 +100,10 @@ def library() -> ctypes.CDLL:
         p_void, p_int, p_float = (ctypes.POINTER(ctypes.c_void_p),
                                   ctypes.POINTER(ctypes.c_int),
                                   ctypes.POINTER(ctypes.c_float))
-        lib.breeze_fused_tendency.argtypes = [p_void, p_int, p_float,
-                                              ctypes.c_void_p]
-        lib.breeze_fused_tendency.restype = ctypes.c_int
+        for name in ARRAY_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.argtypes = [p_void, p_int, p_float, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.breeze_fix_negative.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -91,6 +112,19 @@ def library() -> ctypes.CDLL:
         lib.breeze_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def launch(entry: str, ptrs, ints, floats, like) -> None:
+    """Call one of :data:`ARRAY_ENTRY_POINTS` on the current stream of
+    ``like``'s device and raise if the launch failed.  ``ptrs`` holds
+    tensors or ``None``."""
+    ptrs = [None if t is None else t.data_ptr() for t in ptrs]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_floats = (ctypes.c_float * len(floats))(*floats)
+    with torch.cuda.device(like.device):
+        err = getattr(library(), entry)(c_ptrs, c_ints, c_floats, stream_handle(like))
+    check(err, entry)
 
 
 def check(err: int, what: str) -> None:

@@ -40,15 +40,13 @@ CUDA kernel (``csrc/tendency.cu``) for CUDA tensors.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from . import _build
-
-#: Halo of the padded windows in z and y.
-H = 3
+from .momentum import momentum_div_plain
+from .weno import H, sl as _sl, weno_sel as _weno_sel, xs as _xs
 
 #: Times the CUDA kernel was launched (the plain version does not count).
 launches = 0
@@ -89,57 +87,6 @@ class TendencyColumns:
 # Plain PyTorch version: the kernel's formulas on whole arrays
 # --------------------------------------------------------------------------
 
-def _sq(t):
-    return t * t
-
-
-def _weno5(q, normalize: bool):
-    """WENO5-JS from the upwind-selected cells ``q = (q₋₂ … q₂)``.
-
-    Common-denominator weights (ratios as the classic 0.1/(β+ε)² form).
-    ``normalize`` max-normalizes them with a 1e-9 floor so that the pair
-    products stay in float32 range for large fields (scalars); momentum
-    skips it (velocities ≲ 3e2 keep an order of magnitude of margin).
-    """
-    qm2, qm1, q0, q1, q2 = q
-    p0 = (2.0 * qm2 - 7.0 * qm1 + 11.0 * q0) * (1.0 / 6.0)
-    p1 = (-qm1 + 5.0 * q0 + 2.0 * q1) * (1.0 / 6.0)
-    p2 = (2.0 * q0 + 5.0 * q1 - q2) * (1.0 / 6.0)
-    b0 = (13.0 / 12.0) * _sq(qm2 - 2.0 * qm1 + q0) + 0.25 * _sq(qm2 - 4.0 * qm1 + 3.0 * q0)
-    b1 = (13.0 / 12.0) * _sq(qm1 - 2.0 * q0 + q1) + 0.25 * _sq(qm1 - q1)
-    b2 = (13.0 / 12.0) * _sq(q0 - 2.0 * q1 + q2) + 0.25 * _sq(3.0 * q0 - 4.0 * q1 + q2)
-    e0, e1, e2 = b0 + 1e-6, b1 + 1e-6, b2 + 1e-6
-    if normalize:
-        inv_m = 1.0 / torch.maximum(e0, torch.maximum(e1, e2))
-        e0 = torch.clamp(e0 * inv_m, min=1e-9)
-        e1 = torch.clamp(e1 * inv_m, min=1e-9)
-        e2 = torch.clamp(e2 * inv_m, min=1e-9)
-    a0 = 0.1 * _sq(e1 * e2)
-    a1 = 0.6 * _sq(e0 * e2)
-    a2 = 0.3 * _sq(e0 * e1)
-    return (a0 * p0 + a1 * p1 + a2 * p2) / (a0 + a1 + a2)
-
-
-def _weno_sel(cell, sign, normalize: bool):
-    """Upwind WENO5 at an interface: ``cell(o)`` is the cell at offset o
-    from the interface's left cell; ``sign >= 0`` selects the left-biased
-    stencil, else the mirrored one ``cell(1 - o)``."""
-    up = sign >= 0
-    return _weno5([torch.where(up, cell(o), cell(1 - o))
-                   for o in (-2, -1, 0, 1, 2)], normalize)
-
-
-def _xs(a, o):
-    """``_xs(a, o)[..., i] = a[..., (i + o) mod nx]`` (periodic x)."""
-    return torch.roll(a, -o, 2) if o % a.shape[2] else a
-
-
-def _sl(a, z0, nzr, y0, nyr):
-    """Rows ``z0 .. z0+nzr`` and ``y0 .. y0+nyr`` of a window, counted from
-    its interior."""
-    return a[H + z0: H + z0 + nzr, H + y0: H + y0 + nyr]
-
-
 def fused_tendency_plain(cfg: TendencyConfig, cols: TendencyColumns,
                          u, v, w, scalars, b, thb, fadd, fdamp, cur, prev,
                          alpha: float, dt: float):
@@ -158,47 +105,10 @@ def fused_tendency_plain(cfg: TendencyConfig, cols: TendencyColumns,
     colc = col(cols.colc)
     colf = col(cols.colf)
     ru, rv, rw = u * colc, v * colc, w * colf
-    invdzc, invdzf = col(cols.invdzc), col(cols.invdzf)
     inv_dx, inv_dy = cfg.inv_dx, cfg.inv_dy
-    wsel = lambda cell, sign: _weno_sel(cell, sign, normalize=False)
-
-    # ---- momentum: u at (zc, yc, xf) -------------------------------------
-    rus, us = s(ru, 0, 0), s(u, 0, 0)
-    mf = 0.5 * (rus + xs(rus, 1))
-    F = mf * wsel(lambda o: xs(us, o), mf)
-    du = (F - xs(F, -1)) * inv_dx
-    rvc = sy(rv, 0, 0)
-    mf = 0.5 * (rvc + xs(rvc, -1))
-    F = mf * wsel(lambda o: sy(u, 0, o - 1), mf)
-    du = du + dify(F) * inv_dy
-    rwc = sz(rw, 0, 0)
-    mf = 0.5 * (rwc + xs(rwc, -1))
-    F = mf * wsel(lambda o: sz(u, o - 1, 0), mf)
-    du = du + difz(F) * invdzc
-
-    # ---- v at (zc, yf, xc) -----------------------------------------------
-    mf = 0.5 * (s(ru, 0, 0) + s(ru, 0, -1))
-    vs = s(v, 0, 0)
-    F = mf * wsel(lambda o: xs(vs, o - 1), mf)
-    dv = (xs(F, 1) - F) * inv_dx
-    mf = 0.5 * (sy(rv, 0, -1) + sy(rv, 0, 0))
-    F = mf * wsel(lambda o: sy(v, 0, o - 1), mf)
-    dv = dv + dify(F) * inv_dy
-    mf = 0.5 * (sz(rw, 0, 0) + sz(rw, 0, -1))
-    F = mf * wsel(lambda o: sz(v, o - 1, 0), mf)
-    dv = dv + difz(F) * invdzc
-
-    # ---- w at (zf, yc, xc) -----------------------------------------------
-    mf = 0.5 * (s(ru, 0, 0) + s(ru, -1, 0))
-    ws = s(w, 0, 0)
-    F = mf * wsel(lambda o: xs(ws, o - 1), mf)
-    dw = (xs(F, 1) - F) * inv_dx
-    mf = 0.5 * (sy(rv, 0, 0) + sy(rv, -1, 0))
-    F = mf * wsel(lambda o: sy(w, 0, o - 1), mf)
-    dw = dw + dify(F) * inv_dy
-    mf = 0.5 * (sz(rw, -1, 0) + sz(rw, 0, 0))
-    F = mf * wsel(lambda o: sz(w, o - 1, 0), mf)
-    dw = dw + difz(F) * invdzf
+    invdzc = col(cols.invdzc)
+    du, dv, dw = momentum_div_plain(ru, rv, rw, u, v, w, cols.invdzc, cols.invdzf,
+                                    inv_dx, inv_dy)
 
     gu, gv = -du, -dv
     if cfg.f_cor is not None:
@@ -411,28 +321,18 @@ def fused_tendency(cfg: TendencyConfig, cols: TendencyColumns, u, v, w,
     outs = [torch.empty_like(c) for c in cur]
     nu = (torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device)
           if cfg.closure is not None else None)
-    ptr = lambda t: None if t is None else t.data_ptr()
     pad5 = lambda seq: list(seq) + [None] * (5 - len(seq))
     # order fixed by TendArgs in csrc/tendency.cu
-    ptrs = ([ptr(u), ptr(v), ptr(w), ptr(scalars[0]),
-             ptr(scalars[1]) if K == 2 else None, ptr(b), ptr(thb),
-             ptr(cols.colc), ptr(cols.colf), ptr(cols.invdzc), ptr(cols.invdzf),
-             ptr(cols.invdzc_e), ptr(cols.invdzf_e), ptr(cols.cd2_e)]
-            + [ptr(c) for c in pad5(fadd)] + [ptr(c) for c in pad5(fdamp)]
-            + [ptr(c) for c in pad5(cur)] + [ptr(c) for c in pad5(prev)]
-            + [ptr(c) for c in pad5(outs)] + [ptr(nu)])
+    ptrs = ([u, v, w, scalars[0], scalars[1] if K == 2 else None, b, thb,
+             cols.colc, cols.colf, cols.invdzc, cols.invdzf,
+             cols.invdzc_e, cols.invdzf_e, cols.cd2_e]
+            + pad5(fadd) + pad5(fdamp) + pad5(cur) + pad5(prev) + pad5(outs)
+            + [nu])
     prandtl, buoy_corr, g_acc = cfg.closure or (1.0, False, 0.0)
     ints = [nz, ny, nx, K, int(cfg.f_cor is not None),
             int(cfg.closure is not None), int(bool(buoy_corr))]
     floats = [cfg.inv_dx, cfg.inv_dy, cfg.f_cor or 0.0, prandtl,
               1.0 / prandtl, g_acc, alpha, dt, 1.0 - alpha]
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_ints = (ctypes.c_int * len(ints))(*ints)
-    c_floats = (ctypes.c_float * len(floats))(*floats)
-    lib = _build.library()
-    with torch.cuda.device(u.device):
-        err = lib.breeze_fused_tendency(c_ptrs, c_ints, c_floats,
-                                        _build.stream_handle(u))
-    _build.check(err, "fused_tendency")
+    _build.launch("breeze_fused_tendency", ptrs, ints, floats, u)
     launches += 1
     return outs

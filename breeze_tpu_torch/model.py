@@ -166,17 +166,6 @@ def make_model(grid: Grid, advection: WENO,
         tendency_columns=_tendency_columns(grid, reference, closure))
 
 
-def _field(grid: Grid, val, default):
-    """A full field from ``None`` (``default``), a callable of the cell
-    centers ``(x, y, z)``, or anything broadcastable."""
-    if val is None:
-        val = default
-    elif callable(val):
-        val = val(*grid.xyz_c())
-    t = torch.as_tensor(val, dtype=grid.dtype, device=grid.device)
-    return t.expand(grid.shape).contiguous()
-
-
 def initial_state(model: AtmosphereModel, u=None, v=None, w=None, theta=None,
                   qt=None) -> State:
     """A :class:`State` from specific fields (θ, qᵗ, velocities), converted
@@ -186,11 +175,11 @@ def initial_state(model: AtmosphereModel, u=None, v=None, w=None, theta=None,
     g = model.grid
     ref = model.reference
     rho_c, rho_f = ref.rho_col, ref.rho_f_col
-    rho_theta = _field(g, theta, ref.potential_temperature) * rho_c
-    rho_qt = _field(g, qt, 0.0) * rho_c if model.has_moisture else None
+    rho_theta = fl.full(g, theta, ref.potential_temperature) * rho_c
+    rho_qt = fl.full(g, qt, 0.0) * rho_c if model.has_moisture else None
     rho_u, rho_v, rho_w = fl.enforce_wall_normals(
-        g, _field(g, u, 0.0) * rho_c, _field(g, v, 0.0) * rho_c,
-        _field(g, w, 0.0) * rho_f)
+        g, fl.full(g, u, 0.0) * rho_c, fl.full(g, v, 0.0) * rho_c,
+        fl.full(g, w, 0.0) * rho_f)
     if any(val is not None for val in (u, v, w)):
         rho_u, rho_v, rho_w, _ = pressure_projection(model, rho_u, rho_v, rho_w, 1.0)
     state = State(rho_u=rho_u, rho_v=rho_v, rho_w=rho_w,

@@ -1,10 +1,12 @@
-"""Where the device time of one 256³ BOMEX step goes, by kind of work.
+"""Where the device time of one step goes, by kind of work.
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
-    python3 -m breeze_tpu_torch.profile_step [--trace FILE]
+    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble] [--trace FILE]
 
-It builds the 256³ BOMEX model, runs three warm-up steps, times two steps
+It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s) or the
+256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s), runs three
+warm-up steps, times two steps
 without the profiler (host clock ending in a synchronize), then traces
 as many again with ``torch.profiler``.  From the trace's device events
 (kernels, copies, sets) it prints the device time and launches per step of
@@ -26,12 +28,15 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import bomex
+from . import bomex, bubble
+from .dynamics.compressible import acoustic_rk3_step
 from .timesteppers import ssp_rk3_step
 
-SIZE, STEPS = 256, 2
+STEPS = 2
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-OWN_KERNELS = ("fused_tendency_kernel", "smagorinsky_nu_kernel", "fix_negative_kernel")
+OWN_KERNELS = ("fused_tendency_kernel", "smagorinsky_nu_kernel", "fix_negative_kernel",
+               "momentum_div_kernel", "div_rho_u_c_kernel", "acoustic_column_kernel",
+               "acoustic_damp_kernel")
 
 
 def kind(event: dict) -> str:
@@ -54,6 +59,7 @@ def kind(event: dict) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--case", choices=("bomex", "bubble"), default="bomex")
     parser.add_argument("--trace", help="keep the Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -61,22 +67,30 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
-    model = bomex.bomex_model((SIZE,) * 3, dtype=torch.float32, device="cuda")
-    noise = 0.1 * np.random.default_rng(1).standard_normal(model.grid.shape)
-    state = bomex.bomex_state(model, noise)
+    if args.case == "bomex":
+        size, label = (256, 256, 256), "256^3 BOMEX"
+        model = bomex.bomex_model(size, dtype=torch.float32, device="cuda")
+        noise = 0.1 * np.random.default_rng(1).standard_normal(model.grid.shape)
+        state = bomex.bomex_state(model, noise)
+        step = lambda s: ssp_rk3_step(model, s, 1.0)
+    else:
+        size, label = (256, 256, 128), "256x256x128 dry bubble"
+        model = bubble.bubble_model(size, device="cuda")
+        state = bubble.bubble_state(model)
+        step = lambda s: acoustic_rk3_step(model, s, 0.5)
     for _ in range(3):
-        state = ssp_rk3_step(model, state, 1.0)
+        state = step(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(STEPS):
-        state = ssp_rk3_step(model, state, 1.0)
+        state = step(state)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / STEPS
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            state = ssp_rk3_step(model, state, 1.0)
+            state = step(state)
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.perf_counter() - t0) / STEPS
     with tempfile.TemporaryDirectory() as tmp:
@@ -93,7 +107,7 @@ def main() -> None:
         per_kind[kind(e)][0] += e["dur"] / 1e3 / STEPS
         per_kind[kind(e)][1] += 1 / STEPS
     device_ms = sum(ms for ms, _ in per_kind.values())
-    print(f"{smi}; {SIZE}^3 BOMEX, {STEPS} steps")
+    print(f"{smi}; {label}, {STEPS} steps")
     print(f"unprofiled wall {wall_ms:.2f} ms/step, profiled wall {traced_ms:.2f} ms/step, "
           f"device {device_ms:.2f} ms/step in {sum(c for _, c in per_kind.values()):.0f} "
           f"launches/step")

@@ -9,20 +9,36 @@ Phases (each prints one line; any failure raises and exits non-zero):
 
 1. the device: ``torch.cuda`` must be available; the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build the CUDA kernels from ``breeze_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version at the 256³ BOMEX shapes
-   (the tendency kernel on a state with noise on every prognostic, its G
-   and its increment each measured against their own size), with both
-   times;
+2. build the CUDA kernels from ``breeze_tpu_torch/csrc`` with nvcc (one
+   process per source), with each kernel's registers and spills;
+3. each BOMEX kernel against its plain PyTorch version at the 256³ BOMEX
+   shapes (the tendency kernel on a state with noise on every prognostic,
+   its G and its increment each measured against their own size), with
+   both times;
 4. a small BOMEX run through the kernels against the same run through the
    plain versions on the CPU;
-5. the slice: 256³ BOMEX (``bench.py``'s configuration, random θ noise from
-   a fixed seed), 2 warm-up and 10 timed SSP-RK3 steps at Δt = 1 s, with the
-   launch counts, finiteness and the ∫ρθΔz / ∫ρqᵗΔz drift checked;
-6. a per-layer breakdown of one more step.
+5. the anelastic slice: 256³ BOMEX (``bench.py``'s configuration, random θ
+   noise from a fixed seed), 2 warm-up and 10 timed SSP-RK3 steps at
+   Δt = 1 s, with the launch counts, finiteness and the ∫ρθΔz / ∫ρqᵗΔz
+   drift checked;
+6. a per-layer breakdown of one more BOMEX step;
+7. each compressible kernel against its plain version at 256×256×128 (the
+   bubble with noise on its momenta and ρθ; one 7-substep acoustic stage
+   with noise on all five perturbations and the slow tendencies of that
+   state), with both times;
+8. two steps of the bubble with noise on its momenta and ρθ at 64×32×32
+   through the kernels against the same steps through the plain versions
+   on the CPU;
+9. the compressible slice: the 256×256×128 dry bubble (``bench.py
+   --dynamics compressible``), 2 warm-up and 10 timed WS-RK3 steps at
+   Δt = 0.5 s, with the launch counts, finiteness and the ∫ρ dV / ∫ρθ dV
+   drift checked;
+10. a per-layer breakdown of one more bubble step.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Each path's launch counts are zeroed just before its timed steps and read
+just after.  The line before the last is a JSON object with one entry per
+kernel (times measured here, the bound computed from this run's inputs);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,9 +52,13 @@ import numpy as np
 import torch
 
 import breeze_tpu_torch as bt
-from breeze_tpu_torch import bomex
+from breeze_tpu_torch import bomex, bubble
+from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as M
-from breeze_tpu_torch.kernels import _build, columnar, tendency
+from breeze_tpu_torch.dynamics import compressible as C
+from breeze_tpu_torch.kernels import (_build, acoustic, advection, columnar,
+                                      momentum, tendency)
+from breeze_tpu_torch.kernels.weno import H
 from breeze_tpu_torch.physics.microphysics import apply_negative_moisture_correction
 
 SIZE = (256, 256, 256)
@@ -54,6 +74,36 @@ DRIFT_BOUND = {"rho_theta": 5e-6, "rho_qt": 5e-6}
 # (1−α is rounded on the host) and a Δt at which αΔt·G stands well above the
 # float32 rounding of the O(1)–O(300) state it is added to
 ALPHA, PARITY_DT = 2.0 / 3.0, 3.0
+PHASES = 10
+
+# The compressible slice: bench.py --dynamics compressible
+SIZE_C = (256, 256, 128)
+DT_C = 0.5
+C_NAMES = ("rho", "rho_u", "rho_v", "rho_w", "rho_theta")
+# ∫ρ dV and ∫ρθ dV are flux-form with periodic x, y and walls in z, so
+# they move by float32 rounding alone: over these 6 s they moved by 1.19e-08
+# (ρ) and 1.18e-08 (ρθ) on an H100, so each bound is a small factor above
+C_DRIFT_BOUND = {"rho": 5e-8, "rho_theta": 5e-8}
+# two steps of the noisy bubble at 64×32×32, the CUDA run against the CPU
+# float32 run: the CPU float32 and float64 runs differ by 2.1e-07–6.6e-05 of
+# each field's largest value (ρw the most), so the bound is a small factor
+# above the float32 rounding of the step
+C_SMALL_LIMIT = 3e-4
+
+# The least time of a kernel's work: its bytes (each input read once, each
+# output written once) at the H100 SXM's 3.35 TB/s, or its float32
+# operations at 67 TFLOP/s outside the tensor cores, whichever is larger.
+# Operations per output point, counted from the sources with every
+# interface reconstructed once: WENO5 69 (78 max-normalized), its mass
+# flux and flux 3-4, each divergence 3.
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+OPS_PER_POINT = {
+    "fused_tendency": 1600,    # 9 momentum + 6 scalar faces, closure ~390
+    "fix_negative": 6,
+    "momentum_div": 675,       # 9 faces × 72 + 3 × 9
+    "div_rho_u_c": 256,        # 3 faces × 82 + 10
+    "acoustic_substeps": 110,  # per substep: A 12, B 34, C 35, D 10, E 16, sums 3
+}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -76,6 +126,37 @@ def rel_to_max(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(float(ref.double().abs().max()), 1e-30)
 
 
+def bound(name: str, inputs, outputs, shape, points: int) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel's work: each distinct input
+    read once and each output written once, ``points`` the output points
+    times the passes.  A window padded by H rows in z and y counts at its
+    interior ``shape``: its halo rows are copies of interior rows, which
+    the function need not read twice."""
+    nz, ny, nx = shape
+    padded = (nz + 2 * H, ny + 2 * H, nx)
+    distinct = {(t.data_ptr(), tuple(t.shape)): t for t in inputs}
+    nbytes = sum((nz * ny * nx if tuple(t.shape) == padded else t.numel())
+                 * t.element_size() for t in [*distinct.values(), *outputs])
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * OPS_PER_POINT[name] * points / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def flat(*items):
+    """The tensors in nested lists, tuples and dicts (anything else dropped)."""
+    out = []
+    for it in items:
+        if isinstance(it, dict):
+            out += flat(*it.values())
+        elif isinstance(it, (list, tuple)):
+            out += flat(*it)
+        elif isinstance(it, torch.Tensor):
+            out.append(it)
+    return out
+
+
 def column_totals(model, state) -> dict:
     dz = model.grid.dz_c_col.double()
     return {k: float((getattr(state, k).double() * dz).sum()) for k in DRIFT_BOUND}
@@ -90,7 +171,7 @@ def phase_device() -> tuple[str, str]:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
     name = torch.cuda.get_device_name(0)
-    print(f"[1/6] device: {name}, {torch.cuda.device_count()} visible, "
+    print(f"[1/{PHASES}] device: {name}, {torch.cuda.device_count()} visible, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
     return name, smi
@@ -103,13 +184,15 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = next((k for k in ("fused_tendency", "smagorinsky_nu",
-                                      "fix_negative") if k in line), "?")
+                                      "fix_negative", "momentum_div",
+                                      "div_rho_u_c", "acoustic_column",
+                                      "acoustic_damp") if k in line), "?")
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
         elif "Used" in line and "registers" in line and entry:
             regs = line.split("Used")[1].split(",")[0].strip()
             report.append(f"{entry}: {regs}, {spills}")
-    print(f"[2/6] built kernels in {time.perf_counter() - t0:.1f} s; "
+    print(f"[2/{PHASES}] built kernels in {time.perf_counter() - t0:.1f} s; "
           + "; ".join(report))
 
 
@@ -176,11 +259,14 @@ def phase_parity(model, state) -> list[dict]:
              for what in ("G", "increment")}
     t_kernel = cuda_ms(lambda: tendency.fused_tendency(*args), 5)
     t_plain = cuda_ms(lambda: tendency.fused_tendency_plain(*args), 2)
+    points = args[10][0].numel()
     entries = [dict(name="fused_tendency", route="cuda",
                     source="breeze_tpu_torch/csrc/tendency.cu",
                     replaces="breeze_tpu/pallas_kernels/tendency.py:360",
-                    max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain)]
-    print(f"[3/6] fused_tendency 256^3 stage, noise on every prognostic: max abs "
+                    max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain,
+                    **bound("fused_tendency", flat(args[2:12], vars(args[1])),
+                            args[10], model.grid.shape, points))]
+    print(f"[3/{PHASES}] fused_tendency 256^3 stage, noise on every prognostic: max abs "
           f"err of G {max_abs:.3e}; G-relative {worst['G']:.2e}, "
           f"increment-relative {worst['increment']:.2e} (limit 1e-5); "
           f"kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms")
@@ -212,8 +298,10 @@ def phase_parity(model, state) -> list[dict]:
     entries.append(dict(name="fix_negative", route="cuda",
                         source="breeze_tpu_torch/csrc/columnar.cu",
                         replaces="breeze_tpu/pallas_kernels/columnar.py:113",
-                        max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain))
-    print(f"[3/6] fix_negative 256^3: max abs err {max_abs:.3e}; kernel "
+                        max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain,
+                        **bound("fix_negative", [rq, model.grid.dz_c], [rq],
+                                model.grid.shape, rq.numel())))
+    print(f"[3/{PHASES}] fix_negative 256^3: max abs err {max_abs:.3e}; kernel "
           f"{t_kernel:.3f} ms, plain {t_plain:.3f} ms (uniform Δz); "
           f"{times[1][0]:.3f} / {times[1][1]:.3f} ms (stretched)")
     return entries
@@ -246,7 +334,7 @@ def phase_small_reference() -> None:
         if not err / scale < 1e-5:
             raise AssertionError(f"64x32x32 after 2 steps, {name}: abs {err:.3e} "
                                  f"rel {err / scale:.3e}")
-    print("[4/6] 64x32x32 BOMEX, 2 steps, CUDA vs CPU plain (state-relative): "
+    print(f"[4/{PHASES}] 64x32x32 BOMEX, 2 steps, CUDA vs CPU plain (state-relative): "
           + ", ".join(worst))
 
 
@@ -276,7 +364,7 @@ def phase_slice(model, state, label: str) -> tuple[dict, object]:
             raise AssertionError(f"∫{k}Δz drifted by {drift[k]:.3e} (bound {bound})")
     ms = 1e3 * elapsed / STEPS
     points = SIZE[0] * SIZE[1] * SIZE[2]
-    print(f"[5/6] 256^3 BOMEX: {ms:.2f} ms/step, {points / (ms * 1e-3):.4e} points/s "
+    print(f"[5/{PHASES}] 256^3 BOMEX: {ms:.2f} ms/step, {points / (ms * 1e-3):.4e} points/s "
           f"on {label}; launches {counts}; drift θ {drift['rho_theta']:.2e} "
           f"qt {drift['rho_qt']:.2e}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -307,7 +395,221 @@ def phase_breakdown(model, state, label: str) -> None:
             model, ns.rho_u, ns.rho_v, ns.rho_w, alpha * DT))
         state = ns.replace(rho_u=ru, rho_v=rv, rho_w=rw)
     total = sum(spans.values())
-    print(f"[6/6] one step by layer on {label}, ms (synchronized): "
+    print(f"[6/{PHASES}] one step by layer on {label}, ms (synchronized): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
+          + f"; total {total:.2f}")
+
+
+def noisy_bubble(model, seed: int):
+    """The bubble with noise on the momenta (0.5·N(0, 1), ρw off the
+    bottom face) and ρθ (0.05·N(0, 1)): every WENO and Coriolis term of the
+    slow tendencies is then non-trivial."""
+    g = model.grid
+    rng = np.random.default_rng(seed)
+    gauss = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=g.device)
+    state = bubble.bubble_state(model)
+    rho_w = state.rho_w + gauss(0.2)
+    rho_w[0] = 0.0
+    return state.replace(rho_u=state.rho_u + gauss(0.5), rho_v=state.rho_v + gauss(0.5),
+                         rho_w=rho_w, rho_theta=state.rho_theta + gauss(0.05))
+
+
+def check_rel(what: str, pairs, limit: float) -> float:
+    """Each (got, ref) within ``limit`` of max |ref|; returns the largest
+    absolute error."""
+    worst = 0.0
+    for name, got, ref in pairs:
+        err, rel = rel_to_max(got, ref)
+        if not rel < limit:
+            raise AssertionError(f"{what} {name}: abs {err:.3e} rel {rel:.3e} (limit {limit})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_compressible_parity(model) -> list[dict]:
+    g = model.grid
+    points = g.nx * g.ny * g.nz
+    s = noisy_bubble(model, SEED + 2)
+    aux = C.compressible_diagnose(model, s)
+    pz = lambda a, loc: fl.pad(a, g, loc, halo=3, axes=(0, 1))
+    vel = [pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC)]
+    inv_dx, inv_dy = 1.0 / g.dx, 1.0 / g.dy
+    entries, lines = [], []
+
+    # float32 reassociation and FMA contraction: 1e-5 of each output's
+    # largest value, as for the tendency kernel
+    mom = [pz(s.rho_u, fl.CCF), pz(s.rho_v, fl.CFC), pz(s.rho_w, fl.FCC)]
+    margs = (*mom, *vel, model.z_columns.inv_dzc, model.z_columns.inv_dzf, inv_dx, inv_dy)
+    got = momentum.momentum_div(*margs)
+    torch.cuda.synchronize()
+    max_abs = check_rel("momentum_div", zip("uvw", got, momentum.momentum_div_plain(*margs)),
+                        1e-5)
+    entries.append(dict(name="momentum_div", route="cuda",
+                        source="breeze_tpu_torch/csrc/momentum.cu",
+                        replaces="breeze_tpu/pallas_kernels/momentum.py:283",
+                        max_abs_err=max_abs,
+                        ms=cuda_ms(lambda: momentum.momentum_div(*margs), 20),
+                        plain_ms=cuda_ms(lambda: momentum.momentum_div_plain(*margs), 3),
+                        **bound("momentum_div", flat(margs), got, g.shape, points)))
+
+    aargs = (pz(aux.theta, fl.CCC), *vel, pz(s.rho, fl.CCC), model.z_columns.inv_dzc, inv_dx, inv_dy,
+             model.scalar_advection.bounds_preserving)
+    got = advection.div_rho_u_c(*aargs)
+    torch.cuda.synchronize()
+    max_abs = check_rel("div_rho_u_c", [("G", got, advection.div_rho_u_c_plain(*aargs))],
+                        1e-5)
+    entries.append(dict(name="div_rho_u_c", route="cuda",
+                        source="breeze_tpu_torch/csrc/advection.cu",
+                        replaces="breeze_tpu/pallas_kernels/advection.py:214",
+                        max_abs_err=max_abs,
+                        ms=cuda_ms(lambda: advection.div_rho_u_c(*aargs), 20),
+                        plain_ms=cuda_ms(lambda: advection.div_rho_u_c_plain(*aargs), 3),
+                        **bound("div_rho_u_c", flat(aargs), [got], g.shape, points)))
+
+    # one stage of N = 7 substeps with the PGF gate, at Δτ = Δt/7 (the
+    # last stage's), from noise 1e-3·N(0, 1) on the five perturbations
+    caches = C.stage_caches(model, s, aux)
+    G = C.slow_tendencies(model, s, aux)
+    rng = np.random.default_rng(SEED + 3)
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype, device=g.device)
+            for _ in range(5)]
+    pert[3][0] = 0.0
+    zero = torch.zeros_like(pert[0])
+    pert = acoustic.Perturbations(*pert, zero, zero, zero)
+    n_tau = 7
+    stage = (model.acoustic_config, model.z_columns, caches, G, pert,
+             DT_C / n_tau, n_tau, True)
+    got = acoustic.acoustic_substeps(*stage)
+    torch.cuda.synchronize()
+    # float32: the kernel's two divides in the sweep against the plain
+    # 1/den, and FMA contraction, through 7 substeps: 5e-5 of each
+    # output's largest value (the TPU kernel's test's limit)
+    max_abs = check_rel("acoustic_substeps",
+                        zip(acoustic.Perturbations._fields, got,
+                            acoustic.acoustic_substeps_plain(*stage)), 5e-5)
+    entries.append(dict(name="acoustic_substeps", route="cuda",
+                        source="breeze_tpu_torch/csrc/acoustic.cu",
+                        replaces="breeze_tpu/pallas_kernels/acoustic.py:876",
+                        max_abs_err=max_abs,
+                        ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage), 5),
+                        plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage), 1),
+                        **bound("acoustic_substeps",
+                                flat(caches, G, pert, model.z_columns.inv_dzc,
+                                     model.z_columns.inv_dzf),
+                                got, g.shape, n_tau * points)))
+    for e in entries:
+        lines.append(f"{e['name']} max abs err {e['max_abs_err']:.3e}, kernel "
+                     f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, bound "
+                     f"{e['bound_ms']:.3f} ms ({e['bound_by']})")
+    print(f"[7/{PHASES}] compressible kernels at 256x256x128 (acoustic: one 7-substep "
+          "stage), each against its plain version: " + "; ".join(lines))
+    return entries
+
+
+def phase_compressible_small() -> None:
+    """Two bubble steps at 64×32×32 (Δx = 50 m, Δz = 25 m) through the CUDA
+    kernels against the same steps through the plain versions on the CPU.
+
+    The state is :func:`noisy_bubble`'s, so that the momenta are O(1) and
+    every term of the step acts on them; from the plain bubble they would
+    grow from buoyancy alone, O(1e-2), and carry float32 rounding noise of
+    the same order.  Each field of the CUDA run must agree with the CPU
+    float32 run within ``C_SMALL_LIMIT`` of its largest value; the distance
+    between the CPU float32 and float64 runs of the same steps, printed
+    beside it, measures the float32 rounding that limit stands above."""
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = bubble.bubble_model((64, 32, 32), dtype=dtype, device=device,
+                                    extent=(3_200.0, 1_600.0, 800.0))
+        state = noisy_bubble(model, SEED + 4)
+        for _ in range(2):
+            state = bt.acoustic_rk3_step(model, state, DT_C)
+        runs[device, dtype] = {k: getattr(state, k).cpu().double() for k in C_NAMES}
+    worst = []
+    for name in C_NAMES:
+        ref, f64 = runs["cpu", torch.float32][name], runs["cpu", torch.float64][name]
+        scale = float(f64.abs().max())
+        err = float((runs["cuda", torch.float32][name] - ref).abs().max()) / scale
+        noise = float((ref - f64).abs().max()) / scale
+        worst.append(f"{name} {err:.2e} (f32-vs-f64 {noise:.2e})")
+        if not err < C_SMALL_LIMIT:
+            raise AssertionError(f"64x32x32 bubble after 2 steps, {name}: rel {err:.3e} "
+                                 f"(limit {C_SMALL_LIMIT})")
+    print(f"[8/{PHASES}] 64x32x32 noisy bubble, 2 steps, CUDA vs CPU plain float32 "
+          f"(state-relative, limit {C_SMALL_LIMIT}): " + ", ".join(worst))
+
+
+def volume_totals(model, state) -> dict:
+    dz = model.grid.dz_c_col.double()
+    return {k: float((getattr(state, k).double() * dz).sum()) for k in C_DRIFT_BOUND}
+
+
+def phase_compressible_slice(model, state, label: str) -> tuple[dict, object]:
+    totals0 = volume_totals(model, state)
+    for _ in range(WARMUP):
+        state = bt.acoustic_rk3_step(model, state, DT_C)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    momentum.launches = advection.launches = acoustic.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state = bt.acoustic_rk3_step(model, state, DT_C)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {"momentum_div": momentum.launches, "div_rho_u_c": advection.launches,
+              "acoustic_substeps": acoustic.launches}
+    # three stages; 3 + 4 + 7 substeps of two launches each
+    if counts != {"momentum_div": 3 * STEPS, "div_rho_u_c": 3 * STEPS,
+                  "acoustic_substeps": 28 * STEPS}:
+        raise AssertionError(f"the compressible path missed its kernels: {counts}")
+    for name in C_NAMES:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{name} is not finite after {WARMUP + STEPS} steps")
+    totals1 = volume_totals(model, state)
+    drift = {k: abs(totals1[k] - totals0[k]) / abs(totals0[k]) for k in totals0}
+    for k, limit in C_DRIFT_BOUND.items():
+        if not drift[k] < limit:
+            raise AssertionError(f"∫{k} dV drifted by {drift[k]:.3e} (bound {limit})")
+    ms = 1e3 * elapsed / STEPS
+    points = SIZE_C[0] * SIZE_C[1] * SIZE_C[2]
+    print(f"[9/{PHASES}] 256x256x128 dry bubble: {ms:.2f} ms/step, "
+          f"{points / (ms * 1e-3):.4e} points/s on {label}; launches {counts}; "
+          f"max |rho_w| {float(state.rho_w.abs().max()):.3e}; drift "
+          f"rho {drift['rho']:.2e} rho_theta {drift['rho_theta']:.2e}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, state
+
+
+def phase_compressible_breakdown(model, state, label: str) -> None:
+    """One bubble step with the device drained between layers (host clock)."""
+    spans = {"diagnose+caches": 0.0, "slow tendencies": 0.0, "acoustic loop": 0.0,
+             "recovery": 0.0}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        spans[key] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    plan = C.stage_substep_plan(C.substep_count(model, DT_C), DT_C)
+    state_n = state
+    def diagnose():
+        aux = C.compressible_diagnose(model, state)
+        return aux, C.stage_caches(model, state, aux)
+
+    for n_tau, dtau in plan:
+        aux, caches = timed("diagnose+caches", diagnose)
+        G = timed("slow tendencies", lambda: C.slow_tendencies(model, state, aux))
+        pert = timed("acoustic loop", lambda: acoustic.acoustic_substeps(
+            model.acoustic_config, model.z_columns, caches, G,
+            C.stage_perturbations(state_n, state), dtau, n_tau, n_tau > 1))
+        state = timed("recovery", lambda: C.recover(model, state, pert))
+    total = sum(spans.values())
+    print(f"[10/{PHASES}] one bubble step by layer on {label}, ms (synchronized): "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
           + f"; total {total:.2f}")
 
@@ -323,6 +625,13 @@ def main() -> int:
     phase_small_reference()
     counts, state = phase_slice(model, state, smi)
     phase_breakdown(model, state, smi)
+    del model, state
+    model = bubble.bubble_model(SIZE_C, dtype=torch.float32, device=device)
+    entries += phase_compressible_parity(model)
+    phase_compressible_small()
+    c_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi)
+    phase_compressible_breakdown(model, state, smi)
+    counts.update(c_counts)
     for entry in entries:
         entry["launches"] = counts[entry["name"]]
     print(json.dumps({"kernels": entries}))

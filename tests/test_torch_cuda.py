@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from breeze_tpu_torch import bomex, ssp_rk3_step
+import breeze_tpu_torch as bt
+from breeze_tpu_torch import bomex, bubble, ssp_rk3_step
+from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as TM
-from breeze_tpu_torch.kernels import columnar, tendency
+from breeze_tpu_torch.dynamics import compressible as TC
+from breeze_tpu_torch.kernels import acoustic, advection, columnar, momentum, tendency
 
 NAMES = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
 
@@ -111,4 +114,114 @@ def test_cuda_step_goes_through_both_kernels(cuda_device):
     assert tendency.launches - t0 == 3
     assert columnar.launches - f0 == 1
     for name in NAMES:
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+
+
+def _compressible(size, stretched, device, damping=0.1):
+    """The bubble configuration on an (nx, ny, nz) grid with Δx = 50 m, z
+    uniform (25 m) or stretched, and its state with noise on the momenta
+    and ρθ."""
+    nx, ny, nz = size
+    z = (np.concatenate([[0.0], np.cumsum(20.0 * 1.05 ** np.arange(nz))])
+         if stretched else (0.0, 25.0 * nz))
+    g = bt.make_grid(size, x=(0.0, 50.0 * nx), y=(0.0, 50.0 * ny), z=z,
+                     dtype=torch.float32, device=device)
+    model = TC.make_compressible_model(
+        g, advection=bt.WENO(5), coriolis=bt.FPlane(1e-4),
+        time_discretization=TC.SplitExplicitTimeDiscretization(damping_coefficient=damping))
+    state = bubble.bubble_state(model)
+    rng = np.random.default_rng(6)
+    noise = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=device)
+    rho_w = state.rho_w + noise(0.2)
+    rho_w[0] = 0.0
+    return model, state.replace(rho_u=state.rho_u + noise(0.5), rho_v=state.rho_v + noise(0.5),
+                                rho_w=rho_w, rho_theta=state.rho_theta + noise(0.05))
+
+
+def _windows(model, state):
+    g = model.grid
+    aux = TC.compressible_diagnose(model, state)
+    pz = lambda a, loc: fl.pad(a, g, loc, halo=3, axes=(0, 1))
+    vel = [pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC)]
+    mom = [pz(state.rho_u, fl.CCF), pz(state.rho_v, fl.CFC), pz(state.rho_w, fl.FCC)]
+    return aux, vel, mom, pz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched", [((64, 32, 32), False), ((36, 20, 13), True)],
+                         ids=["blocks", "ragged_stretched"])
+def test_cuda_momentum_div_matches_plain(cuda_device, size, stretched):
+    model, state = _compressible(size, stretched, cuda_device)
+    _, vel, mom, _ = _windows(model, state)
+    args = (*mom, *vel, model.z_columns.inv_dzc, model.z_columns.inv_dzf, 1.0 / model.grid.dx, 1.0 / model.grid.dy)
+    before = momentum.launches
+    got = momentum.momentum_div(*args)
+    torch.cuda.synchronize()
+    assert momentum.launches == before + 1
+    for name, g, r in zip("uvw", got, momentum.momentum_div_plain(*args)):
+        # float32 reassociation and FMA contraction: 1e-5 of the largest value
+        assert _rel_to_max(g, r) < 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched", [((64, 32, 32), False), ((36, 20, 13), True)],
+                         ids=["blocks", "ragged_stretched"])
+@pytest.mark.parametrize("bounds", [False, True], ids=["weno", "bounds"])
+def test_cuda_div_rho_u_c_matches_plain(cuda_device, size, stretched, bounds):
+    model, state = _compressible(size, stretched, cuda_device)
+    aux, vel, _, pz = _windows(model, state)
+    args = (pz(aux.theta, fl.CCC), *vel, pz(state.rho, fl.CCC), model.z_columns.inv_dzc,
+            1.0 / model.grid.dx, 1.0 / model.grid.dy, bounds)
+    before = advection.launches
+    got = advection.div_rho_u_c(*args)
+    torch.cuda.synchronize()
+    assert advection.launches == before + 1
+    assert _rel_to_max(got, advection.div_rho_u_c_plain(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,damping,n_tau,gate", [
+    ((64, 32, 32), False, 0.1, 7, True), ((36, 20, 13), True, 0.1, 4, True),
+    ((36, 20, 13), False, 0.0, 3, False)],
+    ids=["blocks_thermal", "ragged_stretched_thermal", "ragged_none_ungated"])
+def test_cuda_acoustic_matches_plain(cuda_device, size, stretched, damping, n_tau, gate):
+    model, state = _compressible(size, stretched, cuda_device, damping)
+    aux = TC.compressible_diagnose(model, state)
+    caches = TC.stage_caches(model, state, aux)
+    G = TC.slow_tendencies(model, state, aux)
+    rng = np.random.default_rng(8)
+    # noise on the five perturbations and on the sums they are added to
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, model.grid.shape), dtype=torch.float32,
+                            device=cuda_device) for _ in range(8)]
+    pert[3][0] = 0.0
+    pert = acoustic.Perturbations(*pert)
+    kept = [p.clone() for p in pert]
+    args = (model.acoustic_config, model.z_columns, caches, G, pert, 0.5 / 7,
+            n_tau, gate)
+    before = acoustic.launches
+    got = acoustic.acoustic_substeps(*args)
+    torch.cuda.synchronize()
+    assert acoustic.launches == before + 2 * n_tau
+    for name, p, k in zip(acoustic.Perturbations._fields, pert, kept):
+        assert torch.equal(p, k), f"the kernel wrote its input {name}"
+    for name, g, r in zip(acoustic.Perturbations._fields, got,
+                          acoustic.acoustic_substeps_plain(*args)):
+        # float32, the kernel's two divides against the plain 1/den and its
+        # FMA contraction: 5e-5 of the largest value, as the TPU kernel's test
+        assert _rel_to_max(g, r) < 5e-5, name
+
+
+@pytest.mark.cuda
+def test_cuda_bubble_step_goes_through_the_kernels(cuda_device):
+    model = bubble.bubble_model((64, 32, 32), device=cuda_device,
+                                extent=(3_200.0, 1_600.0, 800.0))
+    state = bubble.bubble_state(model)
+    counts = (momentum.launches, advection.launches, acoustic.launches)
+    state = bt.acoustic_rk3_step(model, state, 0.5)
+    torch.cuda.synchronize()
+    # three stages; 3 + 4 + 7 substeps of two launches each
+    assert (momentum.launches - counts[0], advection.launches - counts[1],
+            acoustic.launches - counts[2]) == (3, 3, 28)
+    for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
         assert bool(torch.isfinite(getattr(state, name)).all()), name

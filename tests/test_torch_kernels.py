@@ -1,4 +1,4 @@
-"""The port's two kernels against the JAX package.
+"""The port's kernels against the JAX package.
 
 - ``kernels.tendency``: the port's plain version (through ``stage_update``)
   against ``breeze_tpu``'s fused Pallas kernel in interpret mode in float32,
@@ -6,6 +6,10 @@
 - ``kernels.columnar``: the plain version against
   ``fix_negative_moisture_pallas(..., interpret=True)`` and the jnp closed
   form;
+- ``kernels.momentum``, ``kernels.advection``, ``kernels.acoustic``: the
+  plain versions against ``momentum_div_pallas``, ``div_rho_u_c_pallas``
+  and ``acoustic_substep_loop_pallas`` in interpret mode, in float32 (the
+  float64 checks against the jnp path are in ``test_torch_compressible.py``);
 
 The CUDA kernels against their plain versions are in ``test_torch_cuda.py``.
 """
@@ -19,14 +23,18 @@ import torch
 
 import breeze_tpu as bz
 import torch_parity as tp
+from breeze_tpu import fields as jfl
 from breeze_tpu import model as JM
+from breeze_tpu.pallas_kernels import advection as padv
 from breeze_tpu.pallas_kernels import columnar as pcol
 from breeze_tpu.physics.closures import SmagorinskyLilly as JSmag
 from breeze_tpu.physics.microphysics import fix_negative_moisture as jax_fix_negative
 import breeze_tpu_torch as bt
 from breeze_tpu_torch import bomex, convert
+from breeze_tpu_torch import fields as tfl
 from breeze_tpu_torch import model as TM
-from breeze_tpu_torch.kernels import columnar, tendency
+from breeze_tpu_torch.dynamics import compressible as TC
+from breeze_tpu_torch.kernels import acoustic, advection, columnar, momentum, tendency
 from breeze_tpu_torch.physics.microphysics import fix_negative_moisture
 
 ALPHA, DT = 0.25, 0.5
@@ -205,3 +213,135 @@ def test_fix_negative_plain_matches_jnp_f64(stretch):
     got = fix_negative_moisture(torch.from_numpy(rq), dz_t).numpy()
     # the closed form (cumsum/cummax) and the recurrence agree to roundoff
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-17)
+
+
+# ---------------------------------------------------------------------------
+# The compressible core's kernels, float32, against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _grids(size, stretched):
+    """The same (nx, ny, nz) grid in both packages, float32."""
+    nz = size[2]
+    z = ((0.0, 300.0) if not stretched
+         else np.concatenate([[0.0], np.cumsum(10.0 * 1.08 ** np.arange(nz))]))
+    x, y = (0.0, 1000.0), (0.0, 500.0)
+    jg = bz.make_grid(size=size, x=x, y=y, z=z,
+                      topology=(bz.PERIODIC, bz.PERIODIC, bz.BOUNDED),
+                      halo=3, dtype=jnp.float32)
+    return jg, bt.make_grid(size, x=x, y=y, z=z, dtype=torch.float32, device="cpu")
+
+
+def _fields(shape, seed, **sds):
+    """Named float32 fields N(mean, sd), as (mean, sd) pairs; ρw-like
+    entries (``w*``) vanish on the bottom face."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (mean, sd) in sds.items():
+        a = rng.normal(mean, sd, shape).astype(np.float32)
+        if name.startswith(("w", "rw")):
+            a[0] = 0.0
+        out[name] = a
+    return out
+
+
+def _windows(jg, tg, arrays, locs):
+    """Each array padded for both kernels: the Pallas pre-pad (z by 3, y by
+    4) and the port's (z and y by 3)."""
+    jw = [padv.pad_zy(jnp.asarray(arrays[k]), jg, getattr(jfl, loc)) for k, loc in locs]
+    tw = [tfl.pad(torch.from_numpy(arrays[k]), tg, getattr(tfl, loc), halo=3, axes=(0, 1))
+          for k, loc in locs]
+    return jw, tw
+
+
+def _inv_dz(tg):
+    inv = lambda dz: torch.tensor([1.0 / d for d in dz], dtype=torch.float32)
+    return inv(tg.dz_c_meta), inv(tg.dz_f_meta[: tg.nz])
+
+
+@pytest.mark.parametrize("stretched", [False, True], ids=["uniform", "stretched"])
+def test_momentum_div_plain_matches_pallas_interpret(stretched):
+    from breeze_tpu.pallas_kernels import momentum as pmom
+    jg, tg = _grids((128, 16, 16), stretched)
+    arrays = _fields(jg.shape, 3, ru=(0.0, 1.0), rv=(0.0, 1.0), rw=(0.0, 1.0),
+                     u=(0.0, 2.0), v=(0.0, 2.0), w=(0.0, 1.0))
+    locs = [("ru", "CCF"), ("rv", "CFC"), ("rw", "FCC"),
+            ("u", "CCF"), ("v", "CFC"), ("w", "FCC")]
+    jw, tw = _windows(jg, tg, arrays, locs)
+    ref = pmom.momentum_div_pallas(jg, *jw, interpret=True)
+    got = momentum.momentum_div(*tw, *_inv_dz(tg), float(1.0 / tg.dx), float(1.0 / tg.dy))
+    for name, a, b in zip("uvw", got, ref):
+        a, b = a.numpy(), np.asarray(b)
+        # both read the same below-wall pad data in row 0 of dw.  float32
+        # reassociation in the WENO weights: 1e-5 of the largest value
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err < 1e-5, f"d{name}: {err:.2e}"
+
+
+@pytest.mark.parametrize("stretched,bounds", [(False, False), (False, True),
+                                              (True, False), (True, True)],
+                         ids=["uniform", "uniform_bounds", "stretched",
+                              "stretched_bounds"])
+def test_div_rho_u_c_plain_matches_pallas_interpret(stretched, bounds):
+    jg, tg = _grids((128, 16, 16), stretched)
+    arrays = _fields(jg.shape, 5, c=(300.0, 1.0), u=(0.0, 2.0), v=(0.0, 2.0),
+                     w=(0.0, 1.0), rho=(1.0, 0.1))
+    locs = [("c", "CCC"), ("u", "CCF"), ("v", "CFC"), ("w", "FCC"), ("rho", "CCC")]
+    jw, tw = _windows(jg, tg, arrays, locs)
+    ref = np.asarray(padv.div_rho_u_c_pallas(jg, *jw, bounds=bounds, interpret=True))
+    got = advection.div_rho_u_c(*tw, _inv_dz(tg)[0], float(1.0 / tg.dx),
+                                float(1.0 / tg.dy), bounds=bounds).numpy()
+    # the Pallas kernel normalizes the weights with an approximate
+    # reciprocal, whose scale cancels; the rest is float32 reassociation
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err < 1e-5, f"{err:.2e}"
+
+
+def _acoustic_stage(damping, substeps=4, ny=8):
+    """``TestFusedAcousticSubstep.setup``'s (128, 8, 16) stage: the JAX
+    model, caches and slow tendencies, and noise on the perturbations."""
+    from breeze_tpu.dynamics import compressible as JC
+    g = bz.make_grid(size=(128, ny, 16), extent=(12800.0, 100.0 * ny, 1600.0),
+                     topology=(bz.PERIODIC, bz.PERIODIC, bz.BOUNDED),
+                     halo=3, dtype=jnp.float32)
+    td = JC.SplitExplicitTimeDiscretization(substeps=substeps,
+                                            damping_coefficient=damping)
+    model = JC.make_compressible_model(g, advection=bz.Centered(2), time_discretization=td)
+    state = JC.compressible_initial_state(
+        model, theta=lambda x, y, z: 300.0 + 1.0 * jnp.exp(
+            -((x - 6400.0) ** 2 / 1500.0 ** 2 + (z - 800.0) ** 2 / 300.0 ** 2)),
+        u=lambda x, y, z: 3.0 + 0 * x, pressure_balanced=False)
+    aux = JC.compressible_diagnose(model, state)
+    rng = np.random.default_rng(0)
+    pert = [(rng.normal(size=g.shape) * 1e-3).astype(np.float32) for _ in range(5)]
+    pert[3][0] = 0.0
+    zero = np.zeros(g.shape, np.float32)
+    return (model, JC.stage_caches(model, state, aux), JC.slow_tendencies(model, state, aux),
+            JC.Perturbations(*(jnp.asarray(a) for a in pert + [zero] * 3)))
+
+
+@pytest.mark.parametrize("damping,gate_first", [(0.1, True), (0.0, False)],
+                         ids=["thermal_gated", "none_ungated"])
+def test_acoustic_plain_matches_pallas_interpret(damping, gate_first):
+    from breeze_tpu.pallas_kernels.acoustic import acoustic_substep_loop_pallas
+    model, caches, G, pert = _acoustic_stage(damping)
+    ref = acoustic_substep_loop_pallas(model, caches, G, pert, 0.5, 3,
+                                       gate_first=gate_first, interpret=True)
+    g = model.grid
+    tg = bt.make_grid((g.nx, g.ny, g.nz), extent=(g.Lx, g.Ly, g.Lz),
+                      dtype=torch.float32, device="cpu")
+    tm = bt.make_compressible_model(
+        tg, advection=bt.WENO(5),
+        time_discretization=bt.SplitExplicitTimeDiscretization(
+            damping_coefficient=damping))
+    t = lambda a: torch.tensor(np.asarray(a))
+    got = acoustic.acoustic_substeps(
+        tm.acoustic_config, tm.z_columns,
+        TC.StageCaches(*(t(getattr(caches, k)) for k in TC.StageCaches._fields)),
+        TC.SlowTendencies(*(t(getattr(G, k)) for k in TC.SlowTendencies._fields)),
+        acoustic.Perturbations(*(t(a) for a in pert)), 0.5, 3, gate_first)
+    for name in acoustic.Perturbations._fields:
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        # TestFusedAcousticSubstep's limit: float32, the Pallas kernel
+        # divides twice in the sweep where the plain loop multiplies by 1/den
+        err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-10)
+        assert err < 5e-5, f"{name}: {err:.2e}"
