@@ -1,9 +1,10 @@
 """breeze_tpu_torch: ``breeze_tpu`` in PyTorch, with hand-written CUDA
 kernels for the NVIDIA H100 (``sm_90a``).
 
-Two paths are ported: the anelastic moist LES (BOMEX, ``ssp_rk3_step``) and
+Three paths are ported: the anelastic moist LES (BOMEX, ``ssp_rk3_step``),
 the split-explicit compressible core (the dry bubble,
-``acoustic_rk3_step``).  The JAX package ``breeze_tpu`` is the reference
+``acoustic_rk3_step``), and that core over terrain in σ-coordinates (the
+bubble over a ridge, ``ridge.py``).  The JAX package ``breeze_tpu`` is the reference
 this port is tested against; the port imports no JAX.  Plain tensor code
 runs wherever its tensors live; each kernel (``kernels/``) takes its plain
 PyTorch version for CPU tensors and launches CUDA for CUDA tensors, built

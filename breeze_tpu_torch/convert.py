@@ -8,10 +8,13 @@ k)) for k in ...}``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .dynamics.compressible import CompressibleState
+from .dynamics.terrain import TerrainMetrics
 from .model import State
 from .thermo.reference import ExnerReferenceState, ReferenceState
 
@@ -19,6 +22,9 @@ PROGNOSTICS = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
 REFERENCE_PROFILES = ("p_c", "rho_c", "T_c", "rho_f", "qv_c", "ql_c", "qi_c")
 COMPRESSIBLE_PROGNOSTICS = ("rho", "rho_u", "rho_v", "rho_w", "rho_theta")
 EXNER_PROFILES = ("p_c", "rho_c", "T_c", "theta_c", "exner_c", "rho_f", "qv_c")
+#: The tensor fields of :class:`TerrainMetrics` (``None`` where unused).
+TERRAIN_FIELDS = tuple(f.name for f in dataclasses.fields(TerrainMetrics)
+                       if f.name != "height")
 
 
 def state_from_numpy(arrays: dict, *, dtype: torch.dtype, device) -> State:
@@ -90,3 +96,20 @@ def exner_reference_from_numpy(arrays: dict, *, surface_pressure: float,
         standard_pressure=float(standard_pressure),
         **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
            for k in EXNER_PROFILES})
+
+
+def terrain_from_numpy(arrays: dict, *, height: float, dtype: torch.dtype,
+                       device) -> TerrainMetrics:
+    """:class:`TerrainMetrics` from numpy arrays keyed by
+    :data:`TERRAIN_FIELDS` (a missing or ``None`` SLEVE field stays
+    ``None``), to feed the port another package's metrics and reference."""
+    as_t = lambda a: None if a is None else torch.tensor(np.asarray(a), dtype=dtype,
+                                                         device=device)
+    return TerrainMetrics(height=float(height),
+                          **{k: as_t(arrays.get(k)) for k in TERRAIN_FIELDS})
+
+
+def terrain_to_numpy(terrain: TerrainMetrics) -> dict:
+    """The terrain's tensor fields as numpy arrays (``None`` kept)."""
+    return {k: None if getattr(terrain, k) is None
+            else getattr(terrain, k).detach().cpu().numpy() for k in TERRAIN_FIELDS}

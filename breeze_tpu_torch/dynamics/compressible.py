@@ -1,8 +1,9 @@
 """The split-explicit compressible core: prognostic density, the dry EOS,
 WS-RK3 outer stages around acoustic substeps.
 
-Port of ``breeze_tpu/dynamics/compressible.py`` on its dry, flat,
-potential-temperature path:
+Port of ``breeze_tpu/dynamics/compressible.py`` on its dry
+potential-temperature path, flat or over terrain (σ-coordinates,
+``dynamics/terrain.py``):
 
 - Wicker–Skamarock RK3 stages β = (1/3, 1/2, 1); the slow tendencies
   (WENO5 advection, Coriolis, the frozen horizontal pressure gradient and
@@ -16,13 +17,19 @@ The slow tendencies run the momentum and scalar WENO5 kernels
 (``kernels/momentum.py``, ``kernels/advection.py``) on windows padded by
 ``fields.pad``.  Everything else is plain PyTorch on the grid's device.
 
+Over terrain the slow tendencies are ``terrain.terrain_slow_tendencies``,
+the acoustic loop takes the eight metric factors of
+:func:`terrain_metric_fields`, and the recovery sets ρw on the surface face
+from the kinematic bottom.
+
 Envelope (``make_compressible_model`` raises ``NotImplementedError``
 outside it): periodic x and y, bounded z; WENO5 advection (momentum not
 bounds-preserving); Coriolis ``None`` or :class:`FPlane`; no moisture,
-closure, forcings, boundary fluxes or terrain; the potential-temperature
+closure, forcings or boundary fluxes; the potential-temperature
 formulation; float32 substep storage; thermal or no divergence damping
 through ``damping_coefficient``; the proportional substep plan with N
-from ``acoustic_cfl``; no sponge.
+from ``acoustic_cfl``; flat or :class:`~.terrain.TerrainMetrics` terrain
+(LinearDecay or SLEVE); no sponge or an :class:`UpperSponge`.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 from .. import fields as fl
 from ..advection import WENO
 from ..grid import Grid, Topology
-from ..kernels.acoustic import AcousticConfig, Perturbations, ZColumns, acoustic_substeps
+from ..kernels.acoustic import (AcousticConfig, Perturbations, TerrainFields, ZColumns,
+                               acoustic_substeps)
 from ..kernels.advection import div_rho_u_c
 from ..kernels.momentum import momentum_div
 from ..kernels.weno import H
@@ -44,6 +52,8 @@ from ..ops import StencilOps
 from ..physics.coriolis import FPlane, coriolis_terms
 from ..thermo.constants import ThermodynamicConstants
 from ..thermo.reference import ExnerReferenceState, make_exner_reference_state
+from .terrain import (TerrainMetrics, contravariant_rho_w, kinematic_bottom_rho_w,
+                      terrain_slow_tendencies)
 
 # ---------------------------------------------------------------------------
 # Configuration
@@ -62,15 +72,43 @@ class ThermalDivergenceDamping:
     coefficient: float = 0.1
 
 
+def _ramp_profile(kind: str, z, top: float, depth: float):
+    """Sponge ramp in [0, 1] over the top ``depth`` of the domain:
+    ``linear``, ``sin2`` or ``cubic`` in s = (z − (top − depth))/depth."""
+    s = torch.clamp((z - (top - depth)) / depth, 0.0, 1.0)
+    if kind == "linear":
+        return s
+    if kind == "sin2":
+        return torch.sin(0.5 * math.pi * s) ** 2
+    if kind == "cubic":
+        return s * s * (3.0 - 2.0 * s)
+    raise ValueError(f"unknown ramp {kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class UpperSponge:
+    """Implicit upper Rayleigh sponge on ρw′ inside the acoustic column
+    solve (Klemp, Dudhia & Hassiotis 2008), Crank-Nicolson weighted:
+    ωΔτ·rate·ramp on the diagonal, (1−ω)Δτ·rate·ramp·ρw′ on the explicit
+    right-hand side.  ``damp_full`` (the default) also damps the stage-entry
+    ρwᴸ (the contravariant ρw̃ᴸ over terrain), KDH08's full-field form;
+    ``damp_full=False`` damps the perturbation only."""
+
+    damping_rate: float = 0.2
+    depth: float = 5.0e3
+    ramp: str = "cubic"     # "cubic" | "sin2" | "linear"
+    damp_full: bool = True
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitExplicitTimeDiscretization:
     """Split-explicit (HEVI) controls (``breeze_tpu``'s): ``acoustic_cfl``
     sizes the substep count N from Δt; ``forward_weight`` is the CN
     off-centring ω; ``damping_coefficient`` the thermal divergence damping
-    (0 for none).  ``substeps``, ``damping``, ``substep_floattype``,
-    ``sponge`` and ``substep_distribution`` exist for the reference's
-    signature; the port takes only their defaults (the ``proportional``
-    substep plan)."""
+    (0 for none); ``sponge`` an optional :class:`UpperSponge`.
+    ``substeps``, ``damping``, ``substep_floattype`` and
+    ``substep_distribution`` exist for the reference's signature; the port
+    takes only their defaults (the ``proportional`` substep plan)."""
 
     substeps: int | None = None
     acoustic_cfl: float = 0.5
@@ -115,12 +153,21 @@ class CompressibleModel:
     p_standard: float
     acoustic_config: AcousticConfig
     z_columns: ZColumns
+    terrain: TerrainMetrics | None = None
+    #: the acoustic loop's metric factors over terrain (``None`` when flat)
+    acoustic_metrics: TerrainFields | None = None
 
 
 def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
-                    **excluded):
+                    terrain, formulation, **excluded):
     problems = [f"{name} is not ported" for name, val in excluded.items()
-                if val not in (None, (), "potential_temperature")]
+                if val not in (None, ())]
+    if formulation != "potential_temperature":
+        problems.append(f"the {formulation} formulation is not ported"
+                        + (" (nor wired over terrain in the reference)"
+                           if terrain is not None else ""))
+    if terrain is not None and not isinstance(terrain, TerrainMetrics):
+        problems.append("terrain must be a TerrainMetrics from dynamics.terrain.make_terrain")
     if grid.topologies() != (Topology.BOUNDED, Topology.PERIODIC, Topology.PERIODIC):
         problems.append("x and y must be periodic and z bounded")
     if not (isinstance(momentum_advection, WENO) and momentum_advection.order == 5
@@ -142,8 +189,8 @@ def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
             problems.append("only the proportional substep plan is ported")
         if td.substep_floattype is not None:
             problems.append("substep_floattype is not ported (float32 carries only)")
-        if td.sponge is not None:
-            problems.append("the upper sponge is not ported")
+        if td.sponge is not None and not isinstance(td.sponge, UpperSponge):
+            problems.append("the sponge must be an UpperSponge")
     if problems:
         raise NotImplementedError("outside the ported envelope: " + "; ".join(problems))
 
@@ -169,9 +216,8 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
     scalar_advection = scalar_advection or momentum_advection
     td = time_discretization or SplitExplicitTimeDiscretization()
     _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
-                    closure=closure, forcings=tuple(forcings),
+                    terrain, formulation, closure=closure, forcings=tuple(forcings),
                     boundary_fluxes=boundary_fluxes, microphysics=microphysics,
-                    terrain=terrain, formulation=formulation,
                     reference_vapor_mass_fraction=reference_vapor_mass_fraction)
     constants = constants or ThermodynamicConstants()
     if reference is None:
@@ -184,6 +230,11 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
     # 1/Δz from the float64 spacings, as the TPU kernels take them
     inv = lambda dz: torch.tensor([1.0 / d for d in dz], dtype=grid.dtype,
                                   device=grid.device)
+    sponge = None
+    if td.sponge is not None:
+        sp = td.sponge
+        sponge = sp.damping_rate * _ramp_profile(sp.ramp, grid.z_f[:nz],
+                                                 grid.z0 + grid.Lz, sp.depth)
     return CompressibleModel(
         grid=grid, reference=reference, constants=constants,
         momentum_advection=momentum_advection, scalar_advection=scalar_advection,
@@ -193,7 +244,10 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
             g_acc=float(constants.gravitational_acceleration),
             damping=float(getattr(strategy, "coefficient", 0.0))),
         z_columns=ZColumns(dz_c=grid.dz_c, dz_f=grid.dz_f[:nz],
-                           inv_dzc=inv(grid.dz_c_meta), inv_dzf=inv(grid.dz_f_meta[:nz])))
+                           inv_dzc=inv(grid.dz_c_meta), inv_dzf=inv(grid.dz_f_meta[:nz]),
+                           sponge=sponge),
+        terrain=terrain,
+        acoustic_metrics=None if terrain is None else terrain_metric_fields(terrain))
 
 
 def compressible_initial_state(model: CompressibleModel, theta=None, u=None,
@@ -374,32 +428,78 @@ def stage_perturbations(state_n: CompressibleState,
         sum_rho_u=zero, sum_rho_v=zero, sum_rho_w=zero)
 
 
+def terrain_metric_fields(terrain: TerrainMetrics) -> TerrainFields:
+    """The eight metric factors of the acoustic loop over terrain: 1/J at
+    ζ-centers and ζ-faces, J at x- and y-faces (z-extent 1 for LinearDecay,
+    nz for SLEVE), the z-face slopes moved to the x- and y-centers, and the
+    ζ-center slopes at the x- and y-faces."""
+    sx_zf = terrain.slope_x(at_zface=True)
+    sy_zf = terrain.slope_y(at_zface=True)
+    return TerrainFields(
+        inv_jac_c=1.0 / terrain.jac_c3, inv_jac_f=1.0 / terrain.jac_cf3,
+        jac_xf=terrain.jac_xf3, jac_yf=terrain.jac_yf3,
+        sx_c_zf=0.5 * (sx_zf + torch.roll(sx_zf, -1, 2)),
+        sy_c_zf=0.5 * (sy_zf + torch.roll(sy_zf, -1, 1)),
+        sx_cf=terrain.slope_x(at_zface=False), sy_cf=terrain.slope_y(at_zface=False))
+
+
 def recover(model: CompressibleModel, state: CompressibleState,
             pert: Perturbations) -> CompressibleState:
-    """U^(k) = U^L + the perturbations, the bottom-wall ρw pinned."""
-    rho_u, rho_v, rho_w = fl.enforce_wall_normals(
-        model.grid, state.rho_u + pert.rho_u, state.rho_v + pert.rho_v,
-        state.rho_w + pert.rho_w)
+    """U^(k) = U^L + the perturbations, ρw on the surface face from the
+    bottom condition: 0 on a flat wall, the kinematic bottom over terrain."""
+    if model.terrain is not None:
+        rho_u, rho_v = state.rho_u + pert.rho_u, state.rho_v + pert.rho_v
+        rho_w = state.rho_w + pert.rho_w
+        rho_w[0] = kinematic_bottom_rho_w(model.terrain, rho_u, rho_v)
+    else:
+        rho_u, rho_v, rho_w = fl.enforce_wall_normals(
+            model.grid, state.rho_u + pert.rho_u, state.rho_v + pert.rho_v,
+            state.rho_w + pert.rho_w)
     return state.replace(rho=state.rho + pert.rho, rho_u=rho_u, rho_v=rho_v,
                          rho_w=rho_w, rho_theta=state.rho_theta + pert.rho_theta)
+
+
+def stage_slow_tendencies(model: CompressibleModel, state: CompressibleState,
+                          aux: CompAux) -> SlowTendencies:
+    """The stage's slow tendencies, flat or over terrain."""
+    if model.terrain is not None:
+        return terrain_slow_tendencies(model, model.terrain, state, aux)
+    return slow_tendencies(model, state, aux)
+
+
+def sponge_rho_w_L(model: CompressibleModel, state: CompressibleState):
+    """The stage-entry ρwᴸ that a full-field sponge damps (the
+    contravariant ρw̃ᴸ over terrain, whose perturbation the fast system
+    carries), or ``None`` without one."""
+    sponge = model.time_discretization.sponge
+    if sponge is None or not sponge.damp_full:
+        return None
+    if model.terrain is None:
+        return state.rho_w
+    g = model.grid
+    return contravariant_rho_w(model.terrain, StencilOps(g, halo=1),
+                               fl.pad(state.rho_u, g, fl.CCF, halo=1),
+                               fl.pad(state.rho_v, g, fl.CFC, halo=1), state.rho_w)
 
 
 def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
                       dt: float) -> CompressibleState:
     """One Δt of WS-RK3 with acoustic substeps (``breeze_tpu``'s
-    ``acoustic_rk3_step`` without terrain, scalars or implicit diffusion).
-    Each stage: diagnose, caches, slow tendencies, the substeps with the
-    first substep's pressure gradient gated when the stage has more than
-    one, and the recovery."""
+    ``acoustic_rk3_step`` without scalars or implicit diffusion).  Each
+    stage: diagnose, caches, slow tendencies (over terrain if the model has
+    it), the substeps with the first substep's pressure gradient gated when
+    the stage has more than one, and the recovery."""
     dt = float(dt)
     plan = stage_substep_plan(substep_count(model, dt), dt)
     state_n = state
     for n_tau, dtau in plan:
         aux = compressible_diagnose(model, state)
         caches = stage_caches(model, state, aux)
-        G = slow_tendencies(model, state, aux)
+        G = stage_slow_tendencies(model, state, aux)
         pert = acoustic_substeps(model.acoustic_config, model.z_columns,
                                  caches, G, stage_perturbations(state_n, state),
-                                 dtau, n_tau, gate_first=n_tau > 1)
+                                 dtau, n_tau, gate_first=n_tau > 1,
+                                 metrics=model.acoustic_metrics,
+                                 rho_w_L=sponge_rho_w_L(model, state))
         state = recover(model, state, pert)
     return state.replace(time=state.time + dt)

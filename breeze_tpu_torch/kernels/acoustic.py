@@ -1,22 +1,29 @@
 """The acoustic substeps of the split-explicit compressible core.
 
 Replaces ``breeze_tpu/pallas_kernels/acoustic.py::_run_k3`` (body ``_make_k3``,
-driver ``acoustic_substep_loop_pallas``) on its flat branch: potential
-temperature, float32 carries, thermal divergence damping or none, no
+entry point ``acoustic_substep_loop_pallas``) on its potential-temperature
+branches with float32 carries: flat or σ-terrain (LinearDecay or SLEVE),
+thermal or no divergence damping, with or without the upper Rayleigh
 sponge.  The plain version is the JAX package's jnp substep loop
-(``dynamics/compressible.py::acoustic_substep_loop``) on the same branch.
+(``dynamics/compressible.py::acoustic_substep_loop``) on the same branches.
 
 One substep advances the perturbations about the stage-entry state U^L
 (steps A–E of ``acoustic_substep_loop``):
 
 A. ρu′, ρv′ forward under the slow tendencies and the perturbation
    pressure gradient of p′ = Cᴸ(ρθ)′, gated off on substep 0 when
-   ``gate_first``;
+   ``gate_first``; over terrain the gradient is slope-corrected,
+   ∂x p′|_z = ∂x p′|_ζ − sx·(1/J)∂ζ p′;
 B. the predictors ρ′★, (ρθ)′★ from the new horizontal divergences and the
-   explicit (1−ω) part of the vertical ones;
-C. the off-centred Crank-Nicolson tridiagonal for ρw′ (ρw′ = 0 on the
-   bottom face; the top face's coupling is dropped);
-D. the recovery of ρ′, (ρθ)′ with the implicit ω part;
+   explicit (1−ω) part of the vertical ones; over terrain the horizontal
+   fluxes are J-weighted, the divergences carry 1/J, and the vertical flux
+   is the contravariant ρw̃′ = ρw′ − S′, with the slope part S′ of the new
+   momenta explicit;
+C. the off-centred Crank-Nicolson tridiagonal for ρw′ (the top face's
+   coupling is dropped; the bottom face is ρw′ = 0 when flat and the
+   kinematic bottom ρw′ = S′ over terrain), with the sponge on its
+   diagonal and right-hand side;
+D. the recovery of ρ′, (ρθ)′ with the implicit ω part (×1/J over terrain);
 E. Klemp's thermal divergence damping of ρu′, ρv′ from δτ(ρθ)′/θᴸ,
 
 and sums ρu′, ρv′, ρw′ over the stage's substeps.
@@ -26,8 +33,9 @@ is two launches per substep: a column kernel, one thread per (y, x) column
 marching z, for A–D (it recomputes the neighbours' ρu′, ρv′ that B needs,
 pointwise in the previous substep's fields, and keeps the Thomas sweep's
 c′, d′ in (z, y, x) scratch so that loads coalesce across x), then a
-pointwise kernel for E and the sums.  The TPU kernel's creeping y halo,
-8-aligned windows and k ≤ 3 unroll for VMEM have no counterpart here.
+pointwise kernel for E and the sums.  Terrain and the sponge are template
+flags of the column kernel.  The TPU kernel's creeping y halo, 8-aligned
+windows and k ≤ 3 unroll for VMEM have no counterpart here.
 
 ``acoustic_substeps`` runs :func:`acoustic_substeps_plain` for CPU tensors
 and the CUDA kernels for CUDA tensors.
@@ -77,12 +85,30 @@ class AcousticConfig:
 class ZColumns:
     """Δz at centers and at the stored faces (``(nz,)``, field dtype), which
     the plain version divides by as the jnp loop does, and their
-    reciprocals from the float64 spacings, which the kernels take."""
+    reciprocals from the float64 spacings, which the kernels take; the
+    sponge's rate × ramp on the stored z-faces (``(nz,)``), or ``None``
+    without a sponge."""
 
     dz_c: torch.Tensor
     dz_f: torch.Tensor
     inv_dzc: torch.Tensor
     inv_dzf: torch.Tensor
+    sponge: torch.Tensor | None = None
+
+
+class TerrainFields(NamedTuple):
+    """The acoustic loop's metric factors over terrain, each
+    ``(1|nz, ny, nx)``: z-extent 1 for LinearDecay's ζ-independent
+    Jacobians, nz for the slopes and for every field of SLEVE."""
+
+    inv_jac_c: torch.Tensor   # 1/J at ζ-centers
+    inv_jac_f: torch.Tensor   # 1/J at ζ-faces
+    jac_xf: torch.Tensor      # J at x-faces
+    jac_yf: torch.Tensor      # J at y-faces
+    sx_c_zf: torch.Tensor     # ∂z/∂x at (ζ-face, x-center)
+    sy_c_zf: torch.Tensor     # ∂z/∂y at (ζ-face, y-center)
+    sx_cf: torch.Tensor       # ∂z/∂x at (ζ-center, x-face)
+    sy_cf: torch.Tensor       # ∂z/∂y at (ζ-center, y-face)
 
 
 def _below(a):
@@ -95,13 +121,21 @@ def _up0(a):
     return torch.cat([a[1:], torch.zeros_like(a[:1])], 0)
 
 
+def _above_dup(a):
+    """Row k+1, the top row duplicated."""
+    return torch.cat([a[1:], a[-1:]], 0)
+
+
 def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
                             caches, G, pert: Perturbations, dtau: float,
-                            n_tau: int, gate_first: bool) -> Perturbations:
+                            n_tau: int, gate_first: bool,
+                            metrics: TerrainFields | None = None,
+                            rho_w_L=None) -> Perturbations:
     """The jnp substep loop on whole arrays (any float dtype).  Arguments as
     :func:`acoustic_substeps`."""
     omega, g_acc = cfg.omega, cfg.g_acc
     C_L, th_c, th_zf = caches.C_L, caches.theta_L, caches.theta_L_zf
+    nz = C_L.shape[0]
     dz_c, dz_f = cols.dz_c[:, None, None], cols.dz_f[:, None, None]
     xm = lambda a: torch.roll(a, 1, 2)      # a[i-1]
     ym = lambda a: torch.roll(a, 1, 1)      # a[j-1]
@@ -109,20 +143,45 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
     yp = lambda a: torch.roll(a, -1, 1)     # a[j+1]
     dz_fc_div = lambda wf: (_up0(wf) - wf) / dz_c
     inv_dx, inv_dy = 1.0 / cfg.dx, 1.0 / cfg.dy
+    terrain = metrics is not None
+    if terrain:
+        ijc, ijf, jxf, jyf, sxz, syz, sxc, syc = metrics
+    else:
+        ijc = ijf = 1.0
+    # row k−1 of a ζ-dependent factor; a ζ-independent one is its own
+    below_j = lambda a: _below(a) if torch.is_tensor(a) and a.shape[0] == nz else a
+    ijc_b = below_j(ijc)
 
-    # tridiagonal coefficients, substep-invariant; row 0 pins the wall
+    # tridiagonal coefficients, substep-invariant: gravity carries 1/J at
+    # the ρ-update's center row, the C·θ couplings 1/J at the face times
+    # 1/J at the (ρθ)-update's center row; row 0 is the bottom face
     od2 = omega * omega * dtau * dtau
     C_below = _below(C_L)
-    thf_above = torch.cat([th_zf[1:], th_zf[-1:]], 0)
+    thf_above = _above_dup(th_zf)
     dz_c_below = _below(dz_c)
-    a_coef = (0.5 * g_acc * od2 / dz_c_below
-              - od2 / dz_f * C_below * _below(th_zf) / dz_c_below)
-    b_coef = (1.0 - 0.5 * g_acc * od2 * (1.0 / dz_c_below - 1.0 / dz_c)
-              + od2 / dz_f * (C_L * th_zf / dz_c + C_below * th_zf / dz_c_below))
-    c_coef = -0.5 * g_acc * od2 / dz_c - od2 / dz_f * C_L * thf_above / dz_c
+    a_coef = (0.5 * g_acc * od2 / dz_c_below * ijc_b
+              - od2 / dz_f * C_below * _below(th_zf) / dz_c_below * ijf * ijc_b)
+    b_coef = (1.0 - 0.5 * g_acc * od2 * (ijc_b / dz_c_below - ijc / dz_c)
+              + od2 / dz_f * (C_L * th_zf / dz_c * ijc
+                              + C_below * th_zf / dz_c_below * ijc_b) * ijf)
+    c_coef = (-0.5 * g_acc * od2 / dz_c * ijc
+              - od2 / dz_f * C_L * thf_above / dz_c * ijf * ijc)
+    sponge = None if cols.sponge is None else cols.sponge[:, None, None]
+    sponge_full = None
+    if sponge is not None:
+        b_coef = b_coef + omega * abs(dtau) * sponge
+        if rho_w_L is not None:
+            sponge_full = abs(dtau) * sponge * rho_w_L
     a_coef[0], b_coef[0], c_coef[0] = 0.0, 1.0, 0.0
     th_xf = 0.5 * (th_c + xm(th_c))
     th_yf = 0.5 * (th_c + ym(th_c))
+
+    def slope_part(ru, rv):
+        """S′ at ζ-faces: the z-face slopes times the 4-point x/z and y/z
+        means of ρu′, ρv′."""
+        rub, rvb = _below(ru), _below(rv)
+        return (sxz * (0.25 * (ru + xp(ru) + rub + xp(rub)))
+                + syz * (0.25 * (rv + yp(rv) + rvb + yp(rvb))))
 
     rho_p, ru_p, rv_p, rw_p, rt_p = pert[:5]
     sum_ru, sum_rv, sum_rw = pert[5:]
@@ -130,30 +189,61 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
         # A: horizontal momenta
         pp = C_L * rt_p
         pgf = 0.0 if (i == 0 and gate_first) else 1.0
-        ru_new = ru_p + dtau * (G.rho_u - pgf * ((pp - xm(pp)) * inv_dx))
-        rv_new = rv_p + dtau * (G.rho_v - pgf * ((pp - ym(pp)) / cfg.dy))
+        dpdx = (pp - xm(pp)) * inv_dx
+        dpdy = (pp - ym(pp)) / cfg.dy
+        if terrain:
+            # slope-corrected: (∂x p′)_z = ∂x p′|_ζ − sx·(1/J)∂ζ p′
+            dpz_f = (pp - _below(pp)) / dz_f * ijf
+            dpz_c = 0.5 * (dpz_f + _above_dup(dpz_f))
+            dpdx = dpdx - sxc * 0.5 * (dpz_c + xm(dpz_c))
+            dpdy = dpdy - syc * 0.5 * (dpz_c + ym(dpz_c))
+        ru_new = ru_p + dtau * (G.rho_u - pgf * dpdx)
+        rv_new = rv_p + dtau * (G.rho_v - pgf * dpdy)
         # B: predictors
-        div_h = (xp(ru_new) - ru_new) * inv_dx + (yp(rv_new) - rv_new) * inv_dy
-        fx, fy = th_xf * ru_new, th_yf * rv_new
-        div_ht = (xp(fx) - fx) * inv_dx + (yp(fy) - fy) * inv_dy
-        rho_star = (rho_p + dtau * (G.rho - div_h)
-                    - dtau * (1.0 - omega) * dz_fc_div(rw_p))
-        rt_star = (rt_p + dtau * (G.rho_theta - div_ht)
-                   - dtau * (1.0 - omega) * dz_fc_div(th_zf * rw_p))
+        if terrain:
+            jru, jrv = jxf * ru_new, jyf * rv_new
+            div_h = ((xp(jru) - jru) * inv_dx + (yp(jrv) - jrv) * inv_dy) * ijc
+            fx, fy = th_xf * ru_new * jxf, th_yf * rv_new * jyf
+            div_ht = ((xp(fx) - fx) * inv_dx + (yp(fy) - fy) * inv_dy) * ijc
+            # the contravariant split ρw̃′ = ρw′ − S′, S′ of the new momenta
+            # explicit, ρw′ Crank-Nicolson
+            S_new = slope_part(ru_new, rv_new)
+            rwt_old = rw_p - slope_part(ru_p, rv_p)
+            rho_star = (rho_p + dtau * (G.rho - div_h)
+                        - dtau * ijc * ((1.0 - omega) * dz_fc_div(rwt_old)
+                                        - omega * dz_fc_div(S_new)))
+            rt_star = (rt_p + dtau * (G.rho_theta - div_ht)
+                       - dtau * ijc * ((1.0 - omega) * dz_fc_div(th_zf * rwt_old)
+                                       - omega * dz_fc_div(th_zf * S_new)))
+        else:
+            div_h = (xp(ru_new) - ru_new) * inv_dx + (yp(rv_new) - rv_new) * inv_dy
+            fx, fy = th_xf * ru_new, th_yf * rv_new
+            div_ht = (xp(fx) - fx) * inv_dx + (yp(fy) - fy) * inv_dy
+            rho_star = (rho_p + dtau * (G.rho - div_h)
+                        - dtau * (1.0 - omega) * dz_fc_div(rw_p))
+            rt_star = (rt_p + dtau * (G.rho_theta - div_ht)
+                       - dtau * (1.0 - omega) * dz_fc_div(th_zf * rw_p))
         # C: column solve for ρw′
         rho_star_zf = 0.5 * (rho_star + _below(rho_star))
         rho_tau_zf = 0.5 * (rho_p + _below(rho_p))
         Crt_tau, Crt_star = C_L * rt_p, C_L * rt_star
         d_rhs = (rw_p + dtau * G.rho_w
                  - g_acc * dtau * ((1.0 - omega) * rho_tau_zf + omega * rho_star_zf)
-                 - dtau * ((1.0 - omega) * (Crt_tau - _below(Crt_tau)) / dz_f
-                           + omega * (Crt_star - _below(Crt_star)) / dz_f))
-        d_rhs[0] = 0.0
+                 - dtau * ijf * ((1.0 - omega) * (Crt_tau - _below(Crt_tau)) / dz_f
+                                 + omega * (Crt_star - _below(Crt_star)) / dz_f))
+        if sponge is not None:
+            d_rhs = d_rhs - (1.0 - omega) * abs(dtau) * sponge * rw_p
+        if sponge_full is not None:
+            d_rhs = d_rhs - sponge_full
+        # the bottom face: the kinematic bottom ρw̃′ = 0 over terrain (a
+        # Dirichlet row for ρw′ = S′, kept after the solve), the wall when flat
+        d_rhs[0] = S_new[0] if terrain else 0.0
         rw_new = thomas_solve(a_coef, b_coef, c_coef, d_rhs)
-        rw_new[0] = 0.0
+        if not terrain:
+            rw_new[0] = 0.0
         # D: recovery
-        rho_new = rho_star - omega * dtau * dz_fc_div(rw_new)
-        rt_new = rt_star - omega * dtau * dz_fc_div(th_zf * rw_new)
+        rho_new = rho_star - omega * dtau * ijc * dz_fc_div(rw_new)
+        rt_new = rt_star - omega * dtau * ijc * dz_fc_div(th_zf * rw_new)
         # E: thermal divergence damping
         if cfg.damping:
             D = (rt_new - rt_p) / th_c
@@ -166,7 +256,8 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
 
 def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
                       pert: Perturbations, dtau: float, n_tau: int,
-                      gate_first: bool) -> Perturbations:
+                      gate_first: bool, metrics: TerrainFields | None = None,
+                      rho_w_L=None) -> Perturbations:
     """``n_tau`` acoustic substeps of length ``dtau``.
 
     - ``caches``: the stage's ``C_L``, ``theta_L``, ``theta_L_zf``
@@ -175,26 +266,48 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
       ``rho_theta``;
     - ``pert``: the perturbations at the first substep and the sums to add
       to (read only; the result is in new tensors);
-    - ``gate_first``: no perturbation pressure gradient on substep 0.
+    - ``gate_first``: no perturbation pressure gradient on substep 0;
+    - ``metrics``: the terrain's metric factors, or ``None`` when flat;
+    - ``rho_w_L``: with a sponge (``cols.sponge``), the stage-entry ρwᴸ it
+      also damps (KDH08's full-field form), or ``None`` to damp the
+      perturbation only.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels.
     """
     global launches
     if pert.rho.device.type == "cpu":
         return acoustic_substeps_plain(cfg, cols, caches, G, pert, dtau, n_tau,
-                                       gate_first)
+                                       gate_first, metrics, rho_w_L)
     nz, ny, nx = shape = pert.rho.shape
     fields = dict(zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta",
                        "sum_rho_u", "sum_rho_v", "sum_rho_w"), pert))
     fields.update(C_L=caches.C_L, theta_L=caches.theta_L, theta_L_zf=caches.theta_L_zf)
     fields.update({f"G.{k}": getattr(G, k)
                    for k in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta")})
+    if rho_w_L is not None:
+        fields["rho_w_L"] = rho_w_L
     for name, t in fields.items():
         _build.require_cuda_f32(name, t, shape)
-    for name in ("inv_dzc", "inv_dzf"):
+    for name in ("inv_dzc", "inv_dzf") + (("sponge",) if cols.sponge is not None else ()):
         _build.require_cuda_f32(name, getattr(cols, name), (nz,))
+    jz = 0
+    if metrics is not None:
+        # the four Jacobian factors share a z-extent: 1 (a z-stride of 0 in
+        # the kernel) or nz; the slopes always have nz rows
+        jz = metrics.inv_jac_c.shape[0]
+        if jz not in (1, nz):
+            raise ValueError(f"metric z-extent {jz}: expected 1 or {nz}")
+        for name, t in metrics._asdict().items():
+            _build.require_cuda_f32(f"metrics.{name}", t,
+                                    (jz if name in TerrainFields._fields[:4] else nz, ny, nx))
     if n_tau < 1 or dtau <= 0.0:
         raise ValueError("need n_tau >= 1 and dtau > 0")
+
+    # The full-field sponge is a substep-invariant term of the column's
+    # right-hand side, Δτ·rate·ramp·ρwᴸ: it folds into G.ρw.
+    grw = G.rho_w
+    if cols.sponge is not None and rho_w_L is not None:
+        grw = G.rho_w - cols.sponge[:, None, None] * rho_w_L
 
     # The caller's tensors are read, never written: substep 0 reads them and
     # writes fresh buffers.  ρu′, ρv′, (ρθ)′ then ping-pong between two
@@ -208,15 +321,17 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
     omega, g_acc, damp = cfg.omega, cfg.g_acc, cfg.damping
     od2 = omega * omega * dtau * dtau
     inputs = [caches.C_L, caches.theta_L, caches.theta_L_zf, G.rho_u, G.rho_v,
-              G.rho_w, G.rho, G.rho_theta, cols.inv_dzc, cols.inv_dzf]
-    ints = [nz, ny, nx, int(bool(damp))]
+              grw, G.rho, G.rho_theta, cols.inv_dzc, cols.inv_dzf]
+    extra = [*(metrics if metrics is not None else [None] * 8), cols.sponge]
+    ints = [nz, ny, nx, int(bool(damp)), int(metrics is not None),
+            int(cols.sponge is not None), int(jz == nz)]
     src = 0
     for t in range(n_tau):
         pgf = 0.0 if (t == 0 and gate_first) else 1.0
         dst = 2 if src == 1 else 1
         # order fixed by unpack() in csrc/acoustic.cu
         ptrs = ([ru[src], rv[src], rt[src]] + inputs + prev
-                + [ru[dst], rv[dst], rt[dst], rho, rw, cp, dp, dd] + sums)
+                + [ru[dst], rv[dst], rt[dst], rho, rw, cp, dp, dd] + sums + extra)
         floats = [1.0 / cfg.dx, 1.0 / cfg.dy, dtau, omega, pgf, od2,
                   0.5 * g_acc * od2, g_acc * dtau, dtau * (1.0 - omega),
                   omega * dtau, damp * cfg.dx / dtau, damp * cfg.dy / dtau]

@@ -2,11 +2,12 @@
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
-    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble] [--trace FILE]
+    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble|ridge] [--trace FILE]
 
-It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s) or the
-256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s), runs three
-warm-up steps, times two steps
+It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s), the
+256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s) or that bubble
+over the ridge (σ-coordinates, ``ridge.py``), runs three warm-up steps,
+times two steps
 without the profiler (host clock ending in a synchronize), then traces
 as many again with ``torch.profiler``.  From the trace's device events
 (kernels, copies, sets) it prints the device time and launches per step of
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import bomex, bubble
+from . import bomex, bubble, ridge
 from .dynamics.compressible import acoustic_rk3_step
 from .timesteppers import ssp_rk3_step
 
@@ -59,7 +60,7 @@ def kind(event: dict) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--case", choices=("bomex", "bubble"), default="bomex")
+    parser.add_argument("--case", choices=("bomex", "bubble", "ridge"), default="bomex")
     parser.add_argument("--trace", help="keep the Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -74,8 +75,13 @@ def main() -> None:
         state = bomex.bomex_state(model, noise)
         step = lambda s: ssp_rk3_step(model, s, 1.0)
     else:
-        size, label = (256, 256, 128), "256x256x128 dry bubble"
-        model = bubble.bubble_model(size, device="cuda")
+        size = (256, 256, 128)
+        if args.case == "bubble":
+            label = "256x256x128 dry bubble"
+            model = bubble.bubble_model(size, device="cuda")
+        else:
+            label = "256x256x128 bubble over the ridge"
+            model = ridge.ridge_model(size, device="cuda")
         state = bubble.bubble_state(model)
         step = lambda s: acoustic_rk3_step(model, s, 0.5)
     for _ in range(3):

@@ -33,7 +33,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
    --dynamics compressible``), 2 warm-up and 10 timed WS-RK3 steps at
    Δt = 0.5 s, with the launch counts, finiteness and the ∫ρ dV / ∫ρθ dV
    drift checked;
-10. a per-layer breakdown of one more bubble step.
+10. a per-layer breakdown of one more bubble step;
+11. the acoustic kernel's σ-terrain branches against its plain version at
+    256×256×128: one 7-substep stage over the benchmark's ridge made to
+    vary in y (LinearDecay), over the same ridge in SLEVE coordinates, and
+    over it with a full-field upper sponge, each from the noisy bubble over
+    the ridge with noise on all five perturbations;
+12. two steps of the noisy bubble over the ridge at 64×32×32 through the
+    kernels against the same steps through the plain versions on the CPU;
+13. the terrain slice: the 256×256×128 bubble over the ridge (``bench.py
+    --dynamics compressible --terrain``), 2 warm-up and 10 timed steps, with
+    the launch counts, finiteness and the ∫Jρ dV / ∫Jρθ dV drift checked;
+14. a per-layer breakdown of one more ridge step.
 
 Each path's launch counts are zeroed just before its timed steps and read
 just after.  The line before the last is a JSON object with one entry per
@@ -52,10 +63,11 @@ import numpy as np
 import torch
 
 import breeze_tpu_torch as bt
-from breeze_tpu_torch import bomex, bubble
+from breeze_tpu_torch import bomex, bubble, ridge
 from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as M
 from breeze_tpu_torch.dynamics import compressible as C
+from breeze_tpu_torch.dynamics.terrain import kinematic_bottom_rho_w
 from breeze_tpu_torch.kernels import (_build, acoustic, advection, columnar,
                                       momentum, tendency)
 from breeze_tpu_torch.kernels.weno import H
@@ -74,7 +86,7 @@ DRIFT_BOUND = {"rho_theta": 5e-6, "rho_qt": 5e-6}
 # (1−α is rounded on the host) and a Δt at which αΔt·G stands well above the
 # float32 rounding of the O(1)–O(300) state it is added to
 ALPHA, PARITY_DT = 2.0 / 3.0, 3.0
-PHASES = 10
+PHASES = 14
 
 # The compressible slice: bench.py --dynamics compressible
 SIZE_C = (256, 256, 128)
@@ -89,6 +101,16 @@ C_DRIFT_BOUND = {"rho": 5e-8, "rho_theta": 5e-8}
 # each field's largest value (ρw the most), so the bound is a small factor
 # above the float32 rounding of the step
 C_SMALL_LIMIT = 3e-4
+# The ridge: in σ-coordinates ∫Jρ dV and ∫Jρθ dV are the flux-form totals.
+# The thermal divergence damping leaks a little mass through the surface
+# face (it damps ρu′ after the column solve has set ρw′ there from the old
+# ρu′; 3.04e-08 over 1 s at 32×16×16 in float64, 0 without damping,
+# tests/test_torch_terrain.py).  Over these 6 s they moved by 2.63e-09 (ρ)
+# and 3.58e-09 (ρθ) on an H100, so each bound is a small factor above
+RIDGE_DRIFT_BOUND = {"rho": 2e-8, "rho_theta": 2e-8}
+# the parity cases' SLEVE decay heights and sponge depth on the 3.2 km domain
+SLEVE = dict(large_scale_height=1600.0, small_scale_height=800.0)
+SPONGE_DEPTH = 1000.0
 
 # The least time of a kernel's work: its bytes (each input read once, each
 # output written once) at the H100 SXM's 3.35 TB/s, or its float32
@@ -103,6 +125,8 @@ OPS_PER_POINT = {
     "momentum_div": 675,       # 9 faces × 72 + 3 × 9
     "div_rho_u_c": 256,        # 3 faces × 82 + 10
     "acoustic_substeps": 110,  # per substep: A 12, B 34, C 35, D 10, E 16, sums 3
+    # + the slope PGF 24, J-weighted fluxes 8, S′ 18, 1/J factors 20
+    "acoustic_substeps_terrain": 180,
 }
 
 
@@ -177,23 +201,34 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> None:
+#: the acoustic column kernel's instances by their (terrain, sponge) flags
+ACOUSTIC_COLUMN = {"ILb0ELb0E": "acoustic_column[flat]", "ILb0ELb1E": "acoustic_column[sponge]",
+                   "ILb1ELb0E": "acoustic_column[terrain]",
+                   "ILb1ELb1E": "acoustic_column[terrain+sponge]"}
+
+
+def phase_build() -> dict:
+    """Build; returns each kernel's registers and spill stores as ptxas
+    reports them."""
     t0 = time.perf_counter()
     _build.library()
-    report, entry = [], ""
+    report, entry = {}, ""
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = next((k for k in ("fused_tendency", "smagorinsky_nu",
                                       "fix_negative", "momentum_div",
                                       "div_rho_u_c", "acoustic_column",
                                       "acoustic_damp") if k in line), "?")
+            if entry == "acoustic_column":
+                entry = next(v for k, v in ACOUSTIC_COLUMN.items() if k in line)
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
         elif "Used" in line and "registers" in line and entry:
             regs = line.split("Used")[1].split(",")[0].strip()
-            report.append(f"{entry}: {regs}, {spills}")
+            report[entry] = f"{regs}, {spills}"
     print(f"[2/{PHASES}] built kernels in {time.perf_counter() - t0:.1f} s; "
-          + "; ".join(report))
+          + "; ".join(f"{k}: {v}" for k, v in report.items()))
+    return report
 
 
 def perturbed(model, state, seed: int):
@@ -542,11 +577,17 @@ def phase_compressible_small() -> None:
 
 
 def volume_totals(model, state) -> dict:
-    dz = model.grid.dz_c_col.double()
-    return {k: float((getattr(state, k).double() * dz).sum()) for k in C_DRIFT_BOUND}
+    """∫ρ dV and ∫ρθ dV, with J in σ-coordinates (per unit horizontal area
+    of a cell)."""
+    w = model.grid.dz_c_col.double()
+    if model.terrain is not None:
+        w = w * model.terrain.jac_c3.double()
+    return {k: float((getattr(state, k).double() * w).sum()) for k in C_DRIFT_BOUND}
 
 
-def phase_compressible_slice(model, state, label: str) -> tuple[dict, object]:
+def phase_compressible_slice(model, state, label: str, phase: int = 9,
+                             what: str = "dry bubble",
+                             drift_bound=C_DRIFT_BOUND) -> tuple[dict, object]:
     totals0 = volume_totals(model, state)
     for _ in range(WARMUP):
         state = bt.acoustic_rk3_step(model, state, DT_C)
@@ -569,12 +610,12 @@ def phase_compressible_slice(model, state, label: str) -> tuple[dict, object]:
             raise AssertionError(f"{name} is not finite after {WARMUP + STEPS} steps")
     totals1 = volume_totals(model, state)
     drift = {k: abs(totals1[k] - totals0[k]) / abs(totals0[k]) for k in totals0}
-    for k, limit in C_DRIFT_BOUND.items():
+    for k, limit in drift_bound.items():
         if not drift[k] < limit:
             raise AssertionError(f"∫{k} dV drifted by {drift[k]:.3e} (bound {limit})")
     ms = 1e3 * elapsed / STEPS
     points = SIZE_C[0] * SIZE_C[1] * SIZE_C[2]
-    print(f"[9/{PHASES}] 256x256x128 dry bubble: {ms:.2f} ms/step, "
+    print(f"[{phase}/{PHASES}] 256x256x128 {what}: {ms:.2f} ms/step, "
           f"{points / (ms * 1e-3):.4e} points/s on {label}; launches {counts}; "
           f"max |rho_w| {float(state.rho_w.abs().max()):.3e}; drift "
           f"rho {drift['rho']:.2e} rho_theta {drift['rho_theta']:.2e}; peak memory "
@@ -582,8 +623,9 @@ def phase_compressible_slice(model, state, label: str) -> tuple[dict, object]:
     return counts, state
 
 
-def phase_compressible_breakdown(model, state, label: str) -> None:
-    """One bubble step with the device drained between layers (host clock)."""
+def phase_compressible_breakdown(model, state, label: str, phase: int = 10,
+                                 what: str = "bubble") -> None:
+    """One step with the device drained between layers (host clock)."""
     spans = {"diagnose+caches": 0.0, "slow tendencies": 0.0, "acoustic loop": 0.0,
              "recovery": 0.0}
 
@@ -603,20 +645,126 @@ def phase_compressible_breakdown(model, state, label: str) -> None:
 
     for n_tau, dtau in plan:
         aux, caches = timed("diagnose+caches", diagnose)
-        G = timed("slow tendencies", lambda: C.slow_tendencies(model, state, aux))
+        G = timed("slow tendencies", lambda: C.stage_slow_tendencies(model, state, aux))
         pert = timed("acoustic loop", lambda: acoustic.acoustic_substeps(
             model.acoustic_config, model.z_columns, caches, G,
-            C.stage_perturbations(state_n, state), dtau, n_tau, n_tau > 1))
+            C.stage_perturbations(state_n, state), dtau, n_tau, n_tau > 1,
+            metrics=model.acoustic_metrics, rho_w_L=C.sponge_rho_w_L(model, state)))
         state = timed("recovery", lambda: C.recover(model, state, pert))
     total = sum(spans.values())
-    print(f"[10/{PHASES}] one bubble step by layer on {label}, ms (synchronized): "
+    print(f"[{phase}/{PHASES}] one {what} step by layer on {label}, ms (synchronized): "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
           + f"; total {total:.2f}")
 
 
+def noisy_ridge(model, seed: int):
+    """The bubble over the ridge with noise on the momenta (0.5·N(0, 1)) and
+    ρθ (0.05·N(0, 1)), and on ρw (0.2·N(0, 1)) off the surface face, where
+    the kinematic bottom sets it from the noisy ρu, ρv."""
+    g = model.grid
+    rng = np.random.default_rng(seed)
+    gauss = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=g.device)
+    state = ridge.ridge_state(model)
+    rho_u, rho_v = state.rho_u + gauss(0.5), state.rho_v + gauss(0.5)
+    rho_w = state.rho_w + gauss(0.2)
+    rho_w[0] = kinematic_bottom_rho_w(model.terrain, rho_u, rho_v)
+    return state.replace(rho_u=rho_u, rho_v=rho_v, rho_w=rho_w,
+                         rho_theta=state.rho_theta + gauss(0.05))
+
+
+def phase_terrain_parity(device, registers: dict) -> dict:
+    """The terrain branches of the acoustic kernel against the plain loop at
+    256×256×128: one entry for the ridge in LinearDecay (the main path's
+    branch), with the SLEVE and the sponge cases as its variants."""
+    cases = (("linear", "acoustic_column[terrain]", {}),
+             ("sleve", "acoustic_column[terrain]", SLEVE),
+             ("linear+sponge", "acoustic_column[terrain+sponge]",
+              dict(sponge=C.UpperSponge(depth=SPONGE_DEPTH))))
+    results, lines = [], []
+    for case, kernel, kw in cases:
+        model = ridge.ridge_model(SIZE_C, device=device, y_amplitude=0.3, **kw)
+        g = model.grid
+        s = noisy_ridge(model, SEED + 5)
+        aux = C.compressible_diagnose(model, s)
+        caches = C.stage_caches(model, s, aux)
+        G = C.stage_slow_tendencies(model, s, aux)
+        rng = np.random.default_rng(SEED + 6)
+        pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype,
+                                device=g.device) for _ in range(5)]
+        zero = torch.zeros_like(pert[0])
+        pert = acoustic.Perturbations(*pert, zero, zero, zero)
+        n_tau = 7
+        stage = (model.acoustic_config, model.z_columns, caches, G, pert,
+                 DT_C / n_tau, n_tau, True)
+        kw = dict(metrics=model.acoustic_metrics, rho_w_L=C.sponge_rho_w_L(model, s))
+        got = acoustic.acoustic_substeps(*stage, **kw)
+        torch.cuda.synchronize()
+        # as phase 7: 5e-5 of each output's largest value
+        max_abs = check_rel(f"acoustic_substeps over terrain ({case})",
+                            zip(acoustic.Perturbations._fields, got,
+                                acoustic.acoustic_substeps_plain(*stage, **kw)), 5e-5)
+        entry = dict(case=case, max_abs_err=max_abs,
+                     ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage, **kw), 5),
+                     plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage, **kw), 1),
+                     registers=registers.get(kernel),
+                     **bound("acoustic_substeps_terrain",
+                             flat(caches, G, pert, kw, model.acoustic_metrics,
+                                  model.z_columns.inv_dzc, model.z_columns.inv_dzf,
+                                  model.z_columns.sponge),
+                             got, g.shape, n_tau * g.nx * g.ny * g.nz))
+        results.append(entry)
+        lines.append(f"{case}: max abs err {max_abs:.3e}, kernel {entry['ms']:.3f} ms, plain "
+                     f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
+                     f"({entry['bound_by']}), {entry['registers']}")
+        del model, s, aux, caches, G, pert, got, stage, kw
+        torch.cuda.empty_cache()
+    print(f"[11/{PHASES}] acoustic kernel over terrain at 256x256x128 (one 7-substep stage, "
+          "a ridge varying in y), against its plain version: " + "; ".join(lines))
+    main, *variants = results
+    main.pop("case")
+    return dict(name="acoustic_substeps_terrain", route="cuda",
+                source="breeze_tpu_torch/csrc/acoustic.cu",
+                replaces="breeze_tpu/pallas_kernels/acoustic.py:876",
+                **main, variants=variants)
+
+
+def phase_terrain_small() -> None:
+    """Two steps of the noisy bubble over the ridge at 64×32×32 (Δx = 50 m,
+    Δz = 25 m) through the CUDA kernels against the same steps through the
+    plain versions on the CPU, as phase 8; beside each field's distance,
+    the CPU float32-vs-float64 distance, and each run's ∫Jρ dV drift."""
+    runs, drift = {}, {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = ridge.ridge_model((64, 32, 32), dtype=dtype, device=device,
+                                  extent=(3_200.0, 1_600.0, 800.0))
+        state = noisy_ridge(model, SEED + 7)
+        totals0 = volume_totals(model, state)
+        for _ in range(2):
+            state = bt.acoustic_rk3_step(model, state, DT_C)
+        totals1 = volume_totals(model, state)
+        drift[device, dtype] = abs(totals1["rho"] - totals0["rho"]) / totals0["rho"]
+        runs[device, dtype] = {k: getattr(state, k).cpu().double() for k in C_NAMES}
+    worst = []
+    for name in C_NAMES:
+        ref, f64 = runs["cpu", torch.float32][name], runs["cpu", torch.float64][name]
+        scale = float(f64.abs().max())
+        err = float((runs["cuda", torch.float32][name] - ref).abs().max()) / scale
+        noise = float((ref - f64).abs().max()) / scale
+        worst.append(f"{name} {err:.2e} (f32-vs-f64 {noise:.2e})")
+        if not err < C_SMALL_LIMIT:
+            raise AssertionError(f"64x32x32 ridge after 2 steps, {name}: rel {err:.3e} "
+                                 f"(limit {C_SMALL_LIMIT})")
+    print(f"[12/{PHASES}] 64x32x32 noisy bubble over the ridge, 2 steps, CUDA vs CPU plain "
+          f"float32 (state-relative, limit {C_SMALL_LIMIT}): " + ", ".join(worst)
+          + "; ∫Jρ dV drift: " + ", ".join(f"{d} {str(t)[6:]} {v:.2e}"
+                                           for (d, t), v in drift.items()))
+
+
 def main() -> int:
     name, smi = phase_device()
-    phase_build()
+    registers = phase_build()
     device = torch.device("cuda", 0)
     model = bomex.bomex_model(SIZE, dtype=torch.float32, device=device)
     noise = 0.1 * np.random.default_rng(SEED).standard_normal(model.grid.shape)
@@ -632,8 +780,24 @@ def main() -> int:
     c_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi)
     phase_compressible_breakdown(model, state, smi)
     counts.update(c_counts)
+    del model, state
+    torch.cuda.empty_cache()
+    entries.append(phase_terrain_parity(device, registers))
+    phase_terrain_small()
+    model = ridge.ridge_model(SIZE_C, device=device)
+    r_counts, state = phase_compressible_slice(model, ridge.ridge_state(model), smi, 13,
+                                               "bubble over the ridge", RIDGE_DRIFT_BOUND)
+    phase_compressible_breakdown(model, state, smi, 14, "ridge")
+    counts["acoustic_substeps_terrain"] = r_counts["acoustic_substeps"]
+    kernel_registers = {"fused_tendency": ("fused_tendency", "smagorinsky_nu"),
+                        "fix_negative": ("fix_negative",),
+                        "momentum_div": ("momentum_div",), "div_rho_u_c": ("div_rho_u_c",),
+                        "acoustic_substeps": ("acoustic_column[flat]", "acoustic_damp"),
+                        "acoustic_substeps_terrain": ("acoustic_column[terrain]",
+                                                      "acoustic_damp")}
     for entry in entries:
         entry["launches"] = counts[entry["name"]]
+        entry["registers"] = {k: registers.get(k) for k in kernel_registers[entry["name"]]}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

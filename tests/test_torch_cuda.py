@@ -13,10 +13,11 @@ import pytest
 import torch
 
 import breeze_tpu_torch as bt
-from breeze_tpu_torch import bomex, bubble, ssp_rk3_step
+from breeze_tpu_torch import bomex, bubble, ridge, ssp_rk3_step
 from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as TM
 from breeze_tpu_torch.dynamics import compressible as TC
+from breeze_tpu_torch.dynamics import terrain as TT
 from breeze_tpu_torch.kernels import acoustic, advection, columnar, momentum, tendency
 
 NAMES = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
@@ -210,6 +211,97 @@ def test_cuda_acoustic_matches_plain(cuda_device, size, stretched, damping, n_ta
         # float32, the kernel's two divides against the plain 1/den and its
         # FMA contraction: 5e-5 of the largest value, as the TPU kernel's test
         assert _rel_to_max(g, r) < 5e-5, name
+
+
+def _terrain_model(size, kind, sponge, stretched, device):
+    """A ridge that varies in y, over an (nx, ny, nz) grid with Δx = 50 m
+    and z uniform (25 m) or stretched: ``kind`` is ``linear``
+    (LinearDecay), ``sleve`` or ``flat`` (no terrain); ``sponge`` None or
+    the ``damp_full`` flag of an upper sponge over the top 40%.  The state
+    is the bubble with noise on the momenta and ρθ, ρw on the surface face
+    from the kinematic bottom."""
+    nx, ny, nz = size
+    z = (np.concatenate([[0.0], np.cumsum(20.0 * 1.05 ** np.arange(nz))])
+         if stretched else (0.0, 25.0 * nz))
+    g = bt.make_grid(size, x=(0.0, 50.0 * nx), y=(0.0, 50.0 * ny), z=z,
+                     dtype=torch.float32, device=device)
+    terrain = None
+    if kind != "flat":
+        kw = (dict(large_scale_height=0.5 * g.Lz, small_scale_height=0.25 * g.Lz)
+              if kind == "sleve" else {})
+        terrain = TT.make_terrain(g, bt.ThermodynamicConstants(),
+                                  ridge.ridge_elevation(g.x0, g.Lx, g.Lz, g.y0, g.Ly, 0.3),
+                                  **kw)
+    model = TC.make_compressible_model(
+        g, advection=bt.WENO(5), coriolis=bt.FPlane(1e-4), terrain=terrain,
+        time_discretization=TC.SplitExplicitTimeDiscretization(
+            sponge=None if sponge is None else TC.UpperSponge(depth=0.4 * g.Lz,
+                                                              damp_full=sponge)))
+    state = bubble.bubble_state(model)
+    rng = np.random.default_rng(9)
+    noise = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=device)
+    rho_u, rho_v = state.rho_u + noise(0.5), state.rho_v + noise(0.5)
+    rho_w = state.rho_w + noise(0.2)
+    rho_w[0] = 0.0 if terrain is None else TT.kinematic_bottom_rho_w(terrain, rho_u, rho_v)
+    return model, state.replace(rho_u=rho_u, rho_v=rho_v, rho_w=rho_w,
+                                rho_theta=state.rho_theta + noise(0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,kind,sponge,stretched,n_tau,gate", [
+    ((64, 32, 32), "linear", None, False, 7, True),
+    ((36, 20, 13), "sleve", None, True, 4, True),
+    ((64, 32, 32), "linear", True, True, 7, True),
+    ((36, 20, 13), "linear", False, False, 3, False),
+    ((36, 20, 13), "flat", True, True, 4, True)],
+    ids=["blocks_linear", "ragged_stretched_sleve", "blocks_stretched_linear_sponge_full",
+         "ragged_linear_sponge_perturbation_ungated", "ragged_stretched_flat_sponge_full"])
+def test_cuda_terrain_acoustic_matches_plain(cuda_device, size, kind, sponge, stretched,
+                                             n_tau, gate):
+    """The σ-terrain and sponge branches of the acoustic kernel against the
+    plain loop, on a ridge that varies in y (so that every y-slope term
+    acts), with noise on the perturbations and the sums."""
+    model, state = _terrain_model(size, kind, sponge, stretched, cuda_device)
+    aux = TC.compressible_diagnose(model, state)
+    caches = TC.stage_caches(model, state, aux)
+    G = TC.stage_slow_tendencies(model, state, aux)
+    rng = np.random.default_rng(10)
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, model.grid.shape), dtype=torch.float32,
+                            device=cuda_device) for _ in range(8)]
+    pert = acoustic.Perturbations(*pert)
+    kept = [p.clone() for p in pert]
+    args = (model.acoustic_config, model.z_columns, caches, G, pert, 0.5 / 7, n_tau, gate)
+    kw = dict(metrics=model.acoustic_metrics, rho_w_L=TC.sponge_rho_w_L(model, state))
+    assert (kw["rho_w_L"] is not None) == bool(sponge)
+    before = acoustic.launches
+    got = acoustic.acoustic_substeps(*args, **kw)
+    torch.cuda.synchronize()
+    assert acoustic.launches == before + 2 * n_tau
+    for name, p, k in zip(acoustic.Perturbations._fields, pert, kept):
+        assert torch.equal(p, k), f"the kernel wrote its input {name}"
+    for name, g, r in zip(acoustic.Perturbations._fields, got,
+                          acoustic.acoustic_substeps_plain(*args, **kw)):
+        # float32, the kernel's two divides against the plain 1/den and its
+        # FMA contraction: 5e-5 of the largest value, as the TPU kernel's test
+        assert _rel_to_max(g, r) < 5e-5, name
+
+
+@pytest.mark.cuda
+def test_cuda_ridge_step_goes_through_the_kernels(cuda_device):
+    model = ridge.ridge_model((64, 32, 32), device=cuda_device,
+                              extent=(3_200.0, 1_600.0, 800.0))
+    state = ridge.ridge_state(model)
+    counts = (momentum.launches, advection.launches, acoustic.launches)
+    state = bt.acoustic_rk3_step(model, state, 0.5)
+    torch.cuda.synchronize()
+    assert (momentum.launches - counts[0], advection.launches - counts[1],
+            acoustic.launches - counts[2]) == (3, 3, 28)
+    for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+    # ρw on the surface face is the kinematic bottom's, not the flat wall's
+    kb = TT.kinematic_bottom_rho_w(model.terrain, state.rho_u, state.rho_v)
+    assert torch.equal(state.rho_w[0], kb) and float(kb.abs().max()) > 0.0
 
 
 @pytest.mark.cuda
