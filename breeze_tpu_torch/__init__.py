@@ -2,9 +2,10 @@
 kernels for the NVIDIA H100 (``sm_90a``).
 
 Three paths are ported: the anelastic moist LES (BOMEX, ``ssp_rk3_step``),
-the split-explicit compressible core (the dry bubble,
-``acoustic_rk3_step``), and that core over terrain in σ-coordinates (the
-bubble over a ridge, ``ridge.py``).  The JAX package ``breeze_tpu`` is the reference
+the split-explicit compressible core (the bubble, ``acoustic_rk3_step``:
+dry or moist, in ρθ or ρe, with float32 or bfloat16 acoustic carries), and
+the dry core over terrain in σ-coordinates (the bubble over a ridge,
+``ridge.py``).  The JAX package ``breeze_tpu`` is the reference
 this port is tested against; the port imports no JAX.  Plain tensor code
 runs wherever its tensors live; each kernel (``kernels/``) takes its plain
 PyTorch version for CPU tensors and launches CUDA for CUDA tensors, built
@@ -13,8 +14,9 @@ from ``csrc/`` at first use.
 
 from .advection import WENO
 from .dynamics.compressible import (CompressibleModel, CompressibleState,
-                                    SplitExplicitTimeDiscretization, acoustic_rk3_step,
-                                    compressible_initial_state, make_compressible_model)
+                                    DirectDivergenceDamping, SplitExplicitTimeDiscretization,
+                                    acoustic_rk3_step, compressible_initial_state,
+                                    make_compressible_model)
 from .grid import BOUNDED, PERIODIC, Grid, Topology, make_grid
 from .model import (AtmosphereModel, State, compute_tendencies, diagnose,
                     initial_state, make_model, pressure_projection, stage_update)
@@ -27,7 +29,8 @@ from .timesteppers import ssp_rk3_step
 
 __all__ = [
     "AtmosphereModel", "BOUNDED", "CompressibleModel", "CompressibleState",
-    "FPlane", "Grid", "PERIODIC", "SaturationAdjustment", "SmagorinskyLilly",
+    "DirectDivergenceDamping", "FPlane", "Grid", "PERIODIC", "SaturationAdjustment",
+    "SmagorinskyLilly",
     "SplitExplicitTimeDiscretization", "State", "ThermodynamicConstants",
     "Topology", "WENO", "WarmPhaseEquilibrium",
     "acoustic_rk3_step", "compressible_initial_state", "compute_tendencies",

@@ -68,17 +68,21 @@ def reference_from_numpy(arrays: dict, *, surface_pressure: float,
 def compressible_state_from_numpy(arrays: dict, *, dtype: torch.dtype,
                                   device) -> CompressibleState:
     """A :class:`CompressibleState` from numpy arrays keyed by prognostic
-    name (``rho``, ``rho_u``, ``rho_v``, ``rho_w``, ``rho_theta``), plus an
-    optional ``time``."""
+    name (``rho``, ``rho_u``, ``rho_v``, ``rho_w``, ``rho_theta``, and
+    ``rho_qt`` for a moist state), plus an optional ``time``."""
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     return CompressibleState(
-        **{k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
-           for k in COMPRESSIBLE_PROGNOSTICS},
+        **{k: as_t(arrays[k]) for k in COMPRESSIBLE_PROGNOSTICS},
+        rho_qt=None if arrays.get("rho_qt") is None else as_t(arrays["rho_qt"]),
         time=float(arrays.get("time", 0.0)))
 
 
 def compressible_state_to_numpy(state: CompressibleState) -> dict:
-    """The state's prognostics (and ``time``) as numpy arrays."""
+    """The state's prognostics (``rho_qt`` when moist) and ``time`` as numpy
+    arrays."""
     out = {k: getattr(state, k).detach().cpu().numpy() for k in COMPRESSIBLE_PROGNOSTICS}
+    if state.rho_qt is not None:
+        out["rho_qt"] = state.rho_qt.detach().cpu().numpy()
     out["time"] = np.asarray(state.time)
     return out
 

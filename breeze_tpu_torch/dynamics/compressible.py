@@ -1,9 +1,9 @@
-"""The split-explicit compressible core: prognostic density, the dry EOS,
+"""The split-explicit compressible core: prognostic density, the EOS,
 WS-RK3 outer stages around acoustic substeps.
 
-Port of ``breeze_tpu/dynamics/compressible.py`` on its dry
-potential-temperature path, flat or over terrain (σ-coordinates,
-``dynamics/terrain.py``):
+Port of ``breeze_tpu/dynamics/compressible.py``: dry or moist (warm
+saturation adjustment at the true density), in ρθ or ρe, flat; dry ρθ over
+terrain (σ-coordinates, ``dynamics/terrain.py``):
 
 - Wicker–Skamarock RK3 stages β = (1/3, 1/2, 1); the slow tendencies
   (WENO5 advection, Coriolis, the frozen horizontal pressure gradient and
@@ -11,7 +11,9 @@ potential-temperature path, flat or over terrain (σ-coordinates,
   stage-entry state U^L;
 - the acoustic substeps (``kernels/acoustic.py``) advance the
   perturbations about U^L, which start each stage at Uⁿ − U^L;
-- U^(k) = U^L + the perturbations.
+- U^(k) = U^L + the perturbations;
+- with moisture, ρqᵗ is repaired at step start (the fix-negative kernel)
+  and advected over βΔt by the substeps' time-averaged momenta.
 
 The slow tendencies run the momentum and scalar WENO5 kernels
 (``kernels/momentum.py``, ``kernels/advection.py``) on windows padded by
@@ -24,12 +26,15 @@ from the kinematic bottom.
 
 Envelope (``make_compressible_model`` raises ``NotImplementedError``
 outside it): periodic x and y, bounded z; WENO5 advection (momentum not
-bounds-preserving); Coriolis ``None`` or :class:`FPlane`; no moisture,
-closure, forcings or boundary fluxes; the potential-temperature
-formulation; float32 substep storage; thermal or no divergence damping
-through ``damping_coefficient``; the proportional substep plan with N
-from ``acoustic_cfl``; flat or :class:`~.terrain.TerrainMetrics` terrain
-(LinearDecay or SLEVE); no sponge or an :class:`UpperSponge`.
+bounds-preserving); Coriolis ``None`` or :class:`FPlane`; no closure,
+forcings or boundary fluxes; no microphysics or a warm
+:class:`~..physics.microphysics.SaturationAdjustment`; the
+potential-temperature or static-energy formulation; float32 or bfloat16
+substep storage; no, thermal (without ``damp_vertical``) or direct
+divergence damping; the proportional substep plan with N from
+``acoustic_cfl``; flat or :class:`~.terrain.TerrainMetrics` terrain
+(LinearDecay or SLEVE), dry and in ρθ over terrain; no sponge or an
+:class:`UpperSponge`.
 """
 
 from __future__ import annotations
@@ -50,8 +55,13 @@ from ..kernels.momentum import momentum_div
 from ..kernels.weno import H
 from ..ops import StencilOps
 from ..physics.coriolis import FPlane, coriolis_terms
-from ..thermo.constants import ThermodynamicConstants
+from ..physics.microphysics import (SaturationAdjustment, apply_negative_moisture_correction,
+                                    density_saturation_adjust,
+                                    density_saturation_adjust_static_energy,
+                                    density_temperature_inversion)
+from ..thermo.constants import MoistureMassFractions, ThermodynamicConstants
 from ..thermo.reference import ExnerReferenceState, make_exner_reference_state
+from ..thermo.states import static_energy, theta_li_from_temperature
 from .terrain import (TerrainMetrics, contravariant_rho_w, kinematic_bottom_rho_w,
                       terrain_slow_tendencies)
 
@@ -67,7 +77,17 @@ class NoDivergenceDamping:
 @dataclasses.dataclass(frozen=True)
 class ThermalDivergenceDamping:
     """Klemp, Skamarock & Ha (2018) divergence damping with δτ(ρθ)/θᴸ as
-    the divergence proxy."""
+    the divergence proxy.  ``damp_vertical`` (ignored by the reference) is
+    not ported."""
+
+    coefficient: float = 0.1
+    damp_vertical: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectDivergenceDamping:
+    """KSH18 eq. 36: the damping from δ = ∂x(θᴸₓρu′) + ∂y(θᴸᵧρv′) of the
+    new perturbation momenta, +αΔx ∂xδ/θᴸₓ with no 1/Δτ."""
 
     coefficient: float = 0.1
 
@@ -104,9 +124,10 @@ class UpperSponge:
 class SplitExplicitTimeDiscretization:
     """Split-explicit (HEVI) controls (``breeze_tpu``'s): ``acoustic_cfl``
     sizes the substep count N from Δt; ``forward_weight`` is the CN
-    off-centring ω; ``damping_coefficient`` the thermal divergence damping
-    (0 for none); ``sponge`` an optional :class:`UpperSponge`.
-    ``substeps``, ``damping``, ``substep_floattype`` and
+    off-centring ω; ``damping`` the divergence-damping strategy, or by
+    default thermal damping of ``damping_coefficient`` (0 for none);
+    ``substep_floattype`` ``None`` (float32 carries) or ``"bfloat16"``;
+    ``sponge`` an optional :class:`UpperSponge`.  ``substeps`` and
     ``substep_distribution`` exist for the reference's signature; the port
     takes only their defaults (the ``proportional`` substep plan)."""
 
@@ -121,6 +142,8 @@ class SplitExplicitTimeDiscretization:
     substep_distribution: str = "proportional"
 
     def damping_strategy(self):
+        if self.damping is not None:
+            return self.damping
         if self.damping_coefficient:
             return ThermalDivergenceDamping(self.damping_coefficient)
         return NoDivergenceDamping()
@@ -128,13 +151,16 @@ class SplitExplicitTimeDiscretization:
 
 @dataclasses.dataclass(frozen=True)
 class CompressibleState:
-    """Prognostics: density ρ, momenta on their faces, ρθ at centers."""
+    """Prognostics: density ρ, momenta on their faces, the thermodynamic
+    density ρχ at centers (ρθ, or ρe under the static-energy formulation),
+    and with moisture ρqᵗ."""
 
     rho: torch.Tensor
     rho_u: torch.Tensor
     rho_v: torch.Tensor
     rho_w: torch.Tensor
     rho_theta: torch.Tensor
+    rho_qt: torch.Tensor | None = None
     time: float = 0.0
 
     def replace(self, **kw) -> "CompressibleState":
@@ -156,18 +182,33 @@ class CompressibleModel:
     terrain: TerrainMetrics | None = None
     #: the acoustic loop's metric factors over terrain (``None`` when flat)
     acoustic_metrics: TerrainFields | None = None
+    microphysics: SaturationAdjustment | None = None
+    formulation: str = "potential_temperature"
+    #: the acoustic carries' storage type (``None``: the grid's dtype)
+    substep_dtype: torch.dtype | None = None
+
+    @property
+    def has_moisture(self) -> bool:
+        return self.microphysics is not None
 
 
 def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
-                    terrain, formulation, **excluded):
+                    terrain, formulation, microphysics, **excluded):
+    if formulation not in ("potential_temperature", "static_energy"):
+        raise ValueError(f"unknown formulation {formulation!r}")
     problems = [f"{name} is not ported" for name, val in excluded.items()
                 if val not in (None, ())]
-    if formulation != "potential_temperature":
-        problems.append(f"the {formulation} formulation is not ported"
-                        + (" (nor wired over terrain in the reference)"
-                           if terrain is not None else ""))
-    if terrain is not None and not isinstance(terrain, TerrainMetrics):
-        problems.append("terrain must be a TerrainMetrics from dynamics.terrain.make_terrain")
+    if microphysics is not None and not isinstance(microphysics, SaturationAdjustment):
+        problems.append("microphysics must be None or a SaturationAdjustment")
+    if terrain is not None:
+        if not isinstance(terrain, TerrainMetrics):
+            problems.append("terrain must be a TerrainMetrics from dynamics.terrain.make_terrain")
+        if formulation == "static_energy":
+            problems.append("the static_energy formulation over terrain is not ported "
+                            "(nor wired in the reference)")
+        if microphysics is not None:
+            problems.append("moisture over terrain is not ported (its scalar transport "
+                            "needs the terrain branch of the scalar advection)")
     if grid.topologies() != (Topology.BOUNDED, Topology.PERIODIC, Topology.PERIODIC):
         problems.append("x and y must be periodic and z bounded")
     if not (isinstance(momentum_advection, WENO) and momentum_advection.order == 5
@@ -182,13 +223,16 @@ def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
     else:
         if td.substeps is not None:
             problems.append("a fixed substep count is not ported (acoustic_cfl sizes it)")
-        if td.damping is not None:
-            problems.append("a damping strategy is not ported (damping_coefficient "
-                            "gives thermal damping or none)")
+        strategy = td.damping_strategy()
+        if not isinstance(strategy, (NoDivergenceDamping, ThermalDivergenceDamping,
+                                     DirectDivergenceDamping)):
+            problems.append("the damping must be no, thermal or direct divergence damping")
+        elif getattr(strategy, "damp_vertical", False):
+            problems.append("ThermalDivergenceDamping(damp_vertical=True) is not ported")
         if td.substep_distribution != "proportional":
             problems.append("only the proportional substep plan is ported")
-        if td.substep_floattype is not None:
-            problems.append("substep_floattype is not ported (float32 carries only)")
+        if td.substep_floattype not in (None, "bfloat16"):
+            problems.append("substep_floattype must be None or 'bfloat16'")
         if td.sponge is not None and not isinstance(td.sponge, UpperSponge):
             problems.append("the sponge must be an UpperSponge")
     if problems:
@@ -216,8 +260,8 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
     scalar_advection = scalar_advection or momentum_advection
     td = time_discretization or SplitExplicitTimeDiscretization()
     _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
-                    terrain, formulation, closure=closure, forcings=tuple(forcings),
-                    boundary_fluxes=boundary_fluxes, microphysics=microphysics,
+                    terrain, formulation, microphysics, closure=closure,
+                    forcings=tuple(forcings), boundary_fluxes=boundary_fluxes,
                     reference_vapor_mass_fraction=reference_vapor_mass_fraction)
     constants = constants or ThermodynamicConstants()
     if reference is None:
@@ -242,21 +286,28 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
         acoustic_config=AcousticConfig(
             dx=float(grid.dx), dy=float(grid.dy), omega=float(td.forward_weight),
             g_acc=float(constants.gravitational_acceleration),
-            damping=float(getattr(strategy, "coefficient", 0.0))),
+            damping=float(getattr(strategy, "coefficient", 0.0)),
+            damping_mode="direct" if isinstance(strategy, DirectDivergenceDamping)
+            else "thermal"),
         z_columns=ZColumns(dz_c=grid.dz_c, dz_f=grid.dz_f[:nz],
                            inv_dzc=inv(grid.dz_c_meta), inv_dzf=inv(grid.dz_f_meta[:nz]),
                            sponge=sponge),
         terrain=terrain,
-        acoustic_metrics=None if terrain is None else terrain_metric_fields(terrain))
+        acoustic_metrics=None if terrain is None else terrain_metric_fields(terrain),
+        microphysics=microphysics, formulation=formulation,
+        substep_dtype=None if td.substep_floattype is None else torch.bfloat16)
 
 
 def compressible_initial_state(model: CompressibleModel, theta=None, u=None,
-                               v=None, w=None, rho=None,
+                               v=None, w=None, rho=None, qt=None,
                                pressure_balanced: bool = True) -> CompressibleState:
-    """The state from θ (and optional velocities, density) against the
-    reference column.  By default the density is pressure-balanced,
-    ρ = ρᵣθᵣ/θ, so that ρθ, and with it the EOS pressure, is the
-    reference's and a θ perturbation raises no acoustic noise."""
+    """The state from θ (and optional velocities, density, and qᵗ with
+    moisture) against the reference column.  By default the density is
+    pressure-balanced, ρ = ρᵣθᵣ/θ, so that ρθ, and with it the dry EOS
+    pressure, is the reference's and a θ perturbation raises no acoustic
+    noise.  Under the static-energy formulation ρe follows from θ at the
+    true density: T from the fixed-partition inversion (all moisture
+    vapor), e = cᵖᵐT + gz."""
     g = model.grid
     ref = model.reference
     theta_arr = fl.full(g, theta, ref.theta_col)
@@ -270,8 +321,16 @@ def compressible_initial_state(model: CompressibleModel, theta=None, u=None,
     rho_u, rho_v, rho_w = fl.enforce_wall_normals(
         g, rho_arr * fl.full(g, u, 0.0), rho_arr * fl.full(g, v, 0.0),
         rho_f * fl.full(g, w, 0.0))
+    rho_qt = rho_arr * fl.full(g, qt, 0.0) if model.has_moisture else None
+    rho_chi = rho_arr * theta_arr
+    if model.formulation == "static_energy":
+        q0 = MoistureMassFractions.vapor_only(
+            torch.zeros_like(rho_arr) if rho_qt is None else rho_qt / rho_arr)
+        T0, _ = density_temperature_inversion(theta_arr, rho_arr, q0, model.constants,
+                                              model.p_standard)
+        rho_chi = rho_arr * static_energy(T0, g.z_c_col, q0, model.constants)
     return CompressibleState(rho=rho_arr, rho_u=rho_u, rho_v=rho_v, rho_w=rho_w,
-                             rho_theta=rho_arr * theta_arr)
+                             rho_theta=rho_chi, rho_qt=rho_qt)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +353,16 @@ class CompAux(NamedTuple):
     theta: torch.Tensor
     p: torch.Tensor
     T: torch.Tensor
+    q: MoistureMassFractions | None = None
+    qt: torch.Tensor | None = None
 
 
 def compressible_diagnose(model: CompressibleModel,
                           state: CompressibleState) -> CompAux:
-    """u = ρu/ρ̄ᶠ (ρ averaged to each face), θ = ρθ/ρ, p from the EOS,
-    T = p/(Rᵈρ)."""
+    """u = ρu/ρ̄ᶠ (ρ averaged to each face), and the thermodynamics: in ρθ,
+    θ = ρθ/ρ and, dry, p from the EOS and T = p/(Rᵈρ), moist, (T, q, p)
+    from the saturation adjustment at the true density; in ρe, see
+    :func:`_compressible_diagnose_static_energy`."""
     g = model.grid
     so = StencilOps(g, halo=1)
     rho_pad = fl.pad(state.rho, g, fl.CCC, halo=1)
@@ -307,9 +370,46 @@ def compressible_diagnose(model: CompressibleModel,
     u = state.rho_u / (0.5 * (rho_c + so.v(rho_pad, dx=-1)))
     v = state.rho_v / (0.5 * (rho_c + so.v(rho_pad, dy=-1)))
     w = state.rho_w / (0.5 * (rho_c + so.v(rho_pad, dz=-1)))
+    if model.formulation == "static_energy":
+        return _compressible_diagnose_static_energy(model, state, u, v, w)
+    theta = state.rho_theta / state.rho
+    if model.has_moisture:
+        qt = state.rho_qt / state.rho
+        T, q, p = density_saturation_adjust(theta, state.rho, qt, model.constants,
+                                            model.microphysics, model.p_standard)
+        return CompAux(u=u, v=v, w=w, theta=theta, p=p, T=T, q=q, qt=qt)
     p = eos_pressure(model, state.rho_theta)
-    return CompAux(u=u, v=v, w=w, theta=state.rho_theta / state.rho, p=p,
-                   T=p / (model.constants.Rd * state.rho))
+    return CompAux(u=u, v=v, w=w, theta=theta, p=p, T=p / (model.constants.Rd * state.rho))
+
+
+def reference_static_energy_col(model: CompressibleModel):
+    """The dry reference column's static energy eᵣ = cᵖᵈTᵣ + gz, by the
+    arithmetic of the ρe initial state, so that a dry rest state has
+    ρe = ρᵣeᵣ and T = Tᵣ exactly."""
+    ref = model.reference
+    q0 = MoistureMassFractions.vapor_only(torch.zeros_like(ref.T_col))
+    return static_energy(ref.T_col, model.grid.z_c_col, q0, model.constants)
+
+
+def _compressible_diagnose_static_energy(model: CompressibleModel,
+                                         state: CompressibleState, u, v, w) -> CompAux:
+    """ρe diagnostics: moist, (T, q, p) from the saturation adjustment on e
+    at the true density; dry, T in perturbation form against the reference
+    column, T = Tᵣ + (e − eᵣ)/cᵖᵈ, and p = ρRᵈT.  θ = θˡⁱ(T, q, p)."""
+    c = model.constants
+    e = state.rho_theta / state.rho
+    if model.has_moisture:
+        qt = state.rho_qt / state.rho
+        T, q, p = density_saturation_adjust_static_energy(
+            e, model.grid.z_c_col, state.rho, qt, c, model.microphysics)
+        theta = theta_li_from_temperature(T, q, p, c, model.p_standard)
+        return CompAux(u=u, v=v, w=w, theta=theta, p=p, T=T, q=q, qt=qt)
+    T = model.reference.T_col + (e - reference_static_energy_col(model)) / c.dry_air.heat_capacity
+    p = state.rho * c.Rd * T
+    zero = torch.zeros_like(e)
+    theta = theta_li_from_temperature(T, MoistureMassFractions(zero, zero, zero), p, c,
+                                      model.p_standard)
+    return CompAux(u=u, v=v, w=w, theta=theta, p=p, T=T)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +422,9 @@ class SlowTendencies(NamedTuple):
     rho_v: torch.Tensor
     rho_w: torch.Tensor
     rho_theta: torch.Tensor
+    #: the slow non-advective moisture sources (zero: no closure, fluxes or
+    #: forcings), or ``None`` without moisture
+    rho_qt: torch.Tensor | None = None
 
 
 def slow_tendencies(model: CompressibleModel, state: CompressibleState,
@@ -330,7 +433,11 @@ def slow_tendencies(model: CompressibleModel, state: CompressibleState,
     Coriolis, the frozen horizontal ∇p^L, and for ρw the stage-entry
     imbalance −∂z(p^L − pᵣ) − g(ρ^L − ρᵣ) with the reference's own discrete
     face operator.  No acoustic pressure gradient or buoyancy: those are
-    the fast part."""
+    the fast part.  The scalar advected in the thermodynamic slot is χ = θ,
+    or e = ρe/ρ under the static-energy formulation, whose budget also
+    gains the buoyancy-flux source −ℑᶻ(w · imbalance).  With moisture,
+    G.rho_qt holds the slow non-advective sources (zero here); ρqᵗ is
+    advected in :func:`advance_scalars`."""
     g = model.grid
     ref = model.reference
     so = StencilOps(g, halo=1)
@@ -348,7 +455,8 @@ def slow_tendencies(model: CompressibleModel, state: CompressibleState,
     cor_x, cor_y, cor_z = coriolis_terms(model.coriolis, so, rho_u_pad, rho_v_pad,
                                          rho_w_pad)
     G_rho = -so.div_c(rho_u_pad, rho_v_pad, rho_w_pad)
-    G_rho_theta = div_rho_u_c(pz(aux.theta, fl.CCC), pzu, pzv, pzw,
+    chi = state.rho_theta / state.rho if model.formulation == "static_energy" else aux.theta
+    G_rho_theta = div_rho_u_c(pz(chi, fl.CCC), pzu, pzv, pzw,
                               pz(state.rho, fl.CCC), model.z_columns.inv_dzc, inv_dx, inv_dy,
                               bounds=model.scalar_advection.bounds_preserving)
 
@@ -361,8 +469,11 @@ def slow_tendencies(model: CompressibleModel, state: CompressibleState,
     imbalance = (-so.dz_cf(pp_pad)
                  - model.constants.gravitational_acceleration * so.iz_cf(rp_pad))
     G_rho_w = -adv_w - cor_z + imbalance
+    if model.formulation == "static_energy":
+        G_rho_theta = G_rho_theta - so.iz_fc(p1(aux.w * imbalance, fl.FCC))
     return SlowTendencies(rho=G_rho, rho_u=G_rho_u, rho_v=G_rho_v,
-                          rho_w=G_rho_w, rho_theta=G_rho_theta)
+                          rho_w=G_rho_w, rho_theta=G_rho_theta,
+                          rho_qt=None if state.rho_qt is None else torch.zeros_like(G_rho))
 
 
 # ---------------------------------------------------------------------------
@@ -384,18 +495,32 @@ def substep_count(model: CompressibleModel, dt: float) -> int:
 
 
 class StageCaches(NamedTuple):
-    """Per-stage linearization: θᴸ at centers and z-faces and
-    Cᴸ = ∂p/∂(ρθ) = γRᵈΠᴸ."""
+    """Per-stage linearization p′ = Cᴸ(ρχ)′ + C_ρρ′: χᴸ (θᴸ or eᴸ) at
+    centers and z-faces, Cᴸ = ∂p/∂(ρχ) (γRᵐΠᴸ, or Rᵐ/cᵖᵐ in ρe) and
+    C_ρ = ∂p/∂ρ at fixed ρχ (``None`` in ρθ; (Rᵐ/cᵖᵐ)(ℒˡqˡ + ℒⁱqⁱ − gz)
+    in ρe, exact at the stage's frozen q)."""
 
     theta_L: torch.Tensor
     theta_L_zf: torch.Tensor
     C_L: torch.Tensor
+    C_rho: torch.Tensor | None = None
 
 
 def stage_caches(model: CompressibleModel, state: CompressibleState,
                  aux: CompAux) -> StageCaches:
     c = model.constants
-    Rm, cpm = c.Rd, c.dry_air.heat_capacity
+    if aux.q is not None:
+        Rm, cpm = c.mixture_gas_constant(aux.q), c.mixture_heat_capacity(aux.q)
+    else:
+        Rm, cpm = c.Rd, c.dry_air.heat_capacity
+    if model.formulation == "static_energy":
+        e = state.rho_theta / state.rho
+        Ce = (Rm / cpm) * torch.ones_like(e)
+        lq = (0.0 if aux.q is None else c.liquid.reference_latent_heat * aux.q.liquid
+              + c.ice.reference_latent_heat * aux.q.ice)
+        C_rho = Ce * (lq - c.gravitational_acceleration * model.grid.z_c_col)
+        e_zf = 0.5 * (e + torch.cat([e[:1], e[:-1]], 0))
+        return StageCaches(theta_L=e, theta_L_zf=e_zf, C_L=Ce, C_rho=C_rho)
     gamma = cpm / (cpm - Rm)
     kappa = Rm / cpm
     Pi_L = (aux.p / model.p_standard) ** kappa
@@ -417,14 +542,16 @@ def stage_substep_plan(N: int, dt: float):
     return tuple(plan)
 
 
-def stage_perturbations(state_n: CompressibleState,
-                        state: CompressibleState) -> Perturbations:
-    """The stage rewind: perturbations Uⁿ − U^L, sums zero."""
+def stage_perturbations(state_n: CompressibleState, state: CompressibleState,
+                        store: torch.dtype | None = None) -> Perturbations:
+    """The stage rewind: perturbations Uⁿ − U^L, rounded to the carries'
+    storage type ``store`` (``None``: kept), sums zero."""
     zero = torch.zeros_like(state.rho)
+    cast = (lambda a: a) if store is None else (lambda a: a.to(store))
     return Perturbations(
-        rho=state_n.rho - state.rho, rho_u=state_n.rho_u - state.rho_u,
-        rho_v=state_n.rho_v - state.rho_v, rho_w=state_n.rho_w - state.rho_w,
-        rho_theta=state_n.rho_theta - state.rho_theta,
+        rho=cast(state_n.rho - state.rho), rho_u=cast(state_n.rho_u - state.rho_u),
+        rho_v=cast(state_n.rho_v - state.rho_v), rho_w=cast(state_n.rho_w - state.rho_w),
+        rho_theta=cast(state_n.rho_theta - state.rho_theta),
         sum_rho_u=zero, sum_rho_v=zero, sum_rho_w=zero)
 
 
@@ -482,24 +609,54 @@ def sponge_rho_w_L(model: CompressibleModel, state: CompressibleState):
                                fl.pad(state.rho_v, g, fl.CFC, halo=1), state.rho_w)
 
 
+def advance_scalars(model: CompressibleModel, state_n: CompressibleState,
+                    state_L: CompressibleState, new_state: CompressibleState,
+                    pert: Perturbations, n_tau: int, beta_dt: float,
+                    G: SlowTendencies) -> CompressibleState:
+    """ρqᵗ over the stage's βΔt, flux form: the scalar kernel on qᵗ = ρqᵗ/ρᴸ
+    carried by the substeps' time-averaged momenta ρuᴸ + Σρu′/Nτ over ρᴸ
+    (windows padded as in :func:`slow_tendencies`), plus the slow sources,
+    from the step-start ρqᵗ."""
+    g = model.grid
+    pz = lambda a, loc: fl.pad(a, g, loc, halo=H, axes=(0, 1))
+    rho_safe = torch.clamp(state_L.rho, min=1e-30)
+    inv_n = 1.0 / n_tau
+    Gq = div_rho_u_c(pz(state_L.rho_qt / state_L.rho, fl.CCC),
+                     pz((state_L.rho_u + pert.sum_rho_u * inv_n) / rho_safe, fl.CCF),
+                     pz((state_L.rho_v + pert.sum_rho_v * inv_n) / rho_safe, fl.CFC),
+                     pz((state_L.rho_w + pert.sum_rho_w * inv_n) / rho_safe, fl.FCC),
+                     pz(state_L.rho, fl.CCC), model.z_columns.inv_dzc,
+                     float(1.0 / g.dx), float(1.0 / g.dy),
+                     bounds=model.scalar_advection.bounds_preserving)
+    return new_state.replace(rho_qt=state_n.rho_qt + beta_dt * (Gq + G.rho_qt))
+
+
 def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
                       dt: float) -> CompressibleState:
     """One Δt of WS-RK3 with acoustic substeps (``breeze_tpu``'s
-    ``acoustic_rk3_step`` without scalars or implicit diffusion).  Each
-    stage: diagnose, caches, slow tendencies (over terrain if the model has
-    it), the substeps with the first substep's pressure gradient gated when
-    the stage has more than one, and the recovery."""
+    ``acoustic_rk3_step`` without tracers or implicit diffusion).  With
+    moisture, the negative-moisture repair first.  Each stage: diagnose,
+    caches, slow tendencies (over terrain if the model has it), the
+    substeps with the first substep's pressure gradient gated when the
+    stage has more than one (their carries stored in the model's substep
+    type), the recovery, and with moisture the scalar transport."""
     dt = float(dt)
     plan = stage_substep_plan(substep_count(model, dt), dt)
+    if model.has_moisture:
+        state = apply_negative_moisture_correction(model, state)
     state_n = state
-    for n_tau, dtau in plan:
+    for beta, (n_tau, dtau) in zip(WS_RK3_BETAS, plan):
         aux = compressible_diagnose(model, state)
         caches = stage_caches(model, state, aux)
         G = stage_slow_tendencies(model, state, aux)
-        pert = acoustic_substeps(model.acoustic_config, model.z_columns,
-                                 caches, G, stage_perturbations(state_n, state),
+        pert = acoustic_substeps(model.acoustic_config, model.z_columns, caches, G,
+                                 stage_perturbations(state_n, state, model.substep_dtype),
                                  dtau, n_tau, gate_first=n_tau > 1,
                                  metrics=model.acoustic_metrics,
                                  rho_w_L=sponge_rho_w_L(model, state))
-        state = recover(model, state, pert)
+        new_state = recover(model, state, pert)
+        if model.has_moisture:
+            new_state = advance_scalars(model, state_n, state, new_state, pert, n_tau,
+                                        beta * dt, G)
+        state = new_state
     return state.replace(time=state.time + dt)

@@ -138,12 +138,14 @@ def stream_handle(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, t, shape=None) -> None:
-    """Validate a tensor handed to a CUDA kernel."""
+def require_cuda(name: str, t, shape=None, dtype: torch.dtype = torch.float32) -> None:
+    """Validate a tensor handed to a CUDA kernel: on the card, of ``dtype``
+    (float32 unless the kernel stores the field in another type),
+    contiguous, of ``shape``."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

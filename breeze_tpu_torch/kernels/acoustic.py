@@ -1,19 +1,20 @@
 """The acoustic substeps of the split-explicit compressible core.
 
 Replaces ``breeze_tpu/pallas_kernels/acoustic.py::_run_k3`` (body ``_make_k3``,
-entry point ``acoustic_substep_loop_pallas``) on its potential-temperature
-branches with float32 carries: flat or σ-terrain (LinearDecay or SLEVE),
-thermal or no divergence damping, with or without the upper Rayleigh
-sponge.  The plain version is the JAX package's jnp substep loop
-(``dynamics/compressible.py::acoustic_substep_loop``) on the same branches.
+entry point ``acoustic_substep_loop_pallas``) on all its branches: flat or
+σ-terrain (LinearDecay or SLEVE), the ρe coupling C_ρ (flat), thermal,
+direct or no divergence damping, with or without the upper Rayleigh
+sponge, float32 or bfloat16 carries.  The plain version is the JAX
+package's jnp substep loop (``dynamics/compressible.py::
+acoustic_substep_loop``) on the same branches.
 
 One substep advances the perturbations about the stage-entry state U^L
-(steps A–E of ``acoustic_substep_loop``):
+(steps A–E of ``acoustic_substep_loop``; χ is θ, or e in ρe):
 
 A. ρu′, ρv′ forward under the slow tendencies and the perturbation
-   pressure gradient of p′ = Cᴸ(ρθ)′, gated off on substep 0 when
-   ``gate_first``; over terrain the gradient is slope-corrected,
-   ∂x p′|_z = ∂x p′|_ζ − sx·(1/J)∂ζ p′;
+   pressure gradient of p′ = Cᴸ(ρχ)′ (+ C_ρρ′ in ρe), gated off on
+   substep 0 when ``gate_first``; over terrain the gradient is
+   slope-corrected, ∂x p′|_z = ∂x p′|_ζ − sx·(1/J)∂ζ p′;
 B. the predictors ρ′★, (ρθ)′★ from the new horizontal divergences and the
    explicit (1−ω) part of the vertical ones; over terrain the horizontal
    fluxes are J-weighted, the divergences carry 1/J, and the vertical flux
@@ -22,20 +23,25 @@ B. the predictors ρ′★, (ρθ)′★ from the new horizontal divergences and
 C. the off-centred Crank-Nicolson tridiagonal for ρw′ (the top face's
    coupling is dropped; the bottom face is ρw′ = 0 when flat and the
    kinematic bottom ρw′ = S′ over terrain), with the sponge on its
-   diagonal and right-hand side;
+   diagonal and right-hand side, and in ρe the C_ρ couplings with unit
+   face weight;
 D. the recovery of ρ′, (ρθ)′ with the implicit ω part (×1/J over terrain);
-E. Klemp's thermal divergence damping of ρu′, ρv′ from δτ(ρθ)′/θᴸ,
+E. the divergence damping of ρu′, ρv′: Klemp's thermal form from
+   δτ(ρθ)′/θᴸ, or the direct form from δ = ∂x(θᴸₓρu′) + ∂y(θᴸᵧρv′),
 
-and sums ρu′, ρv′, ρw′ over the stage's substeps.
+and sums ρu′, ρv′, ρw′ over the stage's substeps.  The carries' storage
+type is the perturbations' own: bfloat16 carries are rounded after every
+substep, the arithmetic and the sums stay in the working type.
 
 On the H100 it is bound by device memory.  The design (``csrc/acoustic.cu``)
 is two launches per substep: a column kernel, one thread per (y, x) column
 marching z, for A–D (it recomputes the neighbours' ρu′, ρv′ that B needs,
 pointwise in the previous substep's fields, and keeps the Thomas sweep's
 c′, d′ in (z, y, x) scratch so that loads coalesce across x), then a
-pointwise kernel for E and the sums.  Terrain and the sponge are template
-flags of the column kernel.  The TPU kernel's creeping y halo, 8-aligned
-windows and k ≤ 3 unroll for VMEM have no counterpart here.
+pointwise kernel for E and the sums.  Terrain, the sponge, C_ρ and the
+storage type are template parameters of the kernels.  The TPU kernel's
+creeping y halo, 8-aligned windows and k ≤ 3 unroll for VMEM have no
+counterpart here.
 
 ``acoustic_substeps`` runs :func:`acoustic_substeps_plain` for CPU tensors
 and the CUDA kernels for CUDA tensors.
@@ -71,14 +77,16 @@ class Perturbations(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class AcousticConfig:
-    """Static parameters: horizontal spacings, the CN off-centring ω, g and
-    the thermal damping coefficient (0 for none)."""
+    """Static parameters: horizontal spacings, the CN off-centring ω, g,
+    the divergence-damping coefficient (0 for none) and its form,
+    ``"thermal"`` or ``"direct"``."""
 
     dx: float
     dy: float
     omega: float
     g_acc: float
     damping: float
+    damping_mode: str = "thermal"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,10 +139,13 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
                             n_tau: int, gate_first: bool,
                             metrics: TerrainFields | None = None,
                             rho_w_L=None) -> Perturbations:
-    """The jnp substep loop on whole arrays (any float dtype).  Arguments as
+    """The jnp substep loop on whole arrays, working in the caches' dtype
+    and storing the carries in the perturbations' own.  Arguments as
     :func:`acoustic_substeps`."""
     omega, g_acc = cfg.omega, cfg.g_acc
     C_L, th_c, th_zf = caches.C_L, caches.theta_L, caches.theta_L_zf
+    C_rho = caches.C_rho
+    work, store = C_L.dtype, pert.rho.dtype
     nz = C_L.shape[0]
     dz_c, dz_f = cols.dz_c[:, None, None], cols.dz_f[:, None, None]
     xm = lambda a: torch.roll(a, 1, 2)      # a[i-1]
@@ -166,6 +177,13 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
                               + C_below * th_zf / dz_c_below * ijc_b) * ijf)
     c_coef = (-0.5 * g_acc * od2 / dz_c * ijc
               - od2 / dz_f * C_L * thf_above / dz_c * ijf * ijc)
+    if C_rho is not None:
+        # p′ = … + C_ρρ′: the same couplings with unit face weight (the ρ
+        # predictor's vertical flux is ρw′ itself)
+        Cr_below = _below(C_rho)
+        a_coef = a_coef - od2 / dz_f * Cr_below / dz_c_below * ijf * ijc_b
+        b_coef = b_coef + od2 / dz_f * (C_rho / dz_c * ijc + Cr_below / dz_c_below * ijc_b) * ijf
+        c_coef = c_coef - od2 / dz_f * C_rho / dz_c * ijf * ijc
     sponge = None if cols.sponge is None else cols.sponge[:, None, None]
     sponge_full = None
     if sponge is not None:
@@ -183,11 +201,14 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
         return (sxz * (0.25 * (ru + xp(ru) + rub + xp(rub)))
                 + syz * (0.25 * (rv + yp(rv) + rvb + yp(rvb))))
 
-    rho_p, ru_p, rv_p, rw_p, rt_p = pert[:5]
+    def pressure(rt, rho):
+        return C_L * rt if C_rho is None else C_L * rt + C_rho * rho
+
+    rho_p, ru_p, rv_p, rw_p, rt_p = (a.to(work) for a in pert[:5])
     sum_ru, sum_rv, sum_rw = pert[5:]
     for i in range(n_tau):
         # A: horizontal momenta
-        pp = C_L * rt_p
+        pp = pressure(rt_p, rho_p)
         pgf = 0.0 if (i == 0 and gate_first) else 1.0
         dpdx = (pp - xm(pp)) * inv_dx
         dpdy = (pp - ym(pp)) / cfg.dy
@@ -226,7 +247,7 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
         # C: column solve for ρw′
         rho_star_zf = 0.5 * (rho_star + _below(rho_star))
         rho_tau_zf = 0.5 * (rho_p + _below(rho_p))
-        Crt_tau, Crt_star = C_L * rt_p, C_L * rt_star
+        Crt_tau, Crt_star = pressure(rt_p, rho_p), pressure(rt_star, rho_star)
         d_rhs = (rw_p + dtau * G.rho_w
                  - g_acc * dtau * ((1.0 - omega) * rho_tau_zf + omega * rho_star_zf)
                  - dtau * ijf * ((1.0 - omega) * (Crt_tau - _below(Crt_tau)) / dz_f
@@ -244,14 +265,21 @@ def acoustic_substeps_plain(cfg: AcousticConfig, cols: ZColumns,
         # D: recovery
         rho_new = rho_star - omega * dtau * ijc * dz_fc_div(rw_new)
         rt_new = rt_star - omega * dtau * ijc * dz_fc_div(th_zf * rw_new)
-        # E: thermal divergence damping
-        if cfg.damping:
+        # E: divergence damping, thermal or direct
+        if cfg.damping and cfg.damping_mode == "direct":
+            fx, fy = th_xf * ru_new, th_yf * rv_new
+            delta = (xp(fx) - fx) * inv_dx + (yp(fy) - fy) * inv_dy
+            ru_new = ru_new + cfg.damping * cfg.dx * (delta - xm(delta)) / th_xf
+            rv_new = rv_new + cfg.damping * cfg.dy * (delta - ym(delta)) / th_yf
+        elif cfg.damping:
             D = (rt_new - rt_p) / th_c
             ru_new = ru_new - cfg.damping * cfg.dx / dtau * (D - xm(D))
             rv_new = rv_new - cfg.damping * cfg.dy / dtau * (D - ym(D))
-        rho_p, ru_p, rv_p, rw_p, rt_p = rho_new, ru_new, rv_new, rw_new, rt_new
+        rho_p, ru_p, rv_p, rw_p, rt_p = (a.to(store).to(work) for a in
+                                         (rho_new, ru_new, rv_new, rw_new, rt_new))
         sum_ru, sum_rv, sum_rw = sum_ru + ru_p, sum_rv + rv_p, sum_rw + rw_p
-    return Perturbations(rho_p, ru_p, rv_p, rw_p, rt_p, sum_ru, sum_rv, sum_rw)
+    return Perturbations(*(a.to(store) for a in (rho_p, ru_p, rv_p, rw_p, rt_p)),
+                         sum_ru, sum_rv, sum_rw)
 
 
 def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
@@ -261,11 +289,14 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
     """``n_tau`` acoustic substeps of length ``dtau``.
 
     - ``caches``: the stage's ``C_L``, ``theta_L``, ``theta_L_zf``
-      (``(nz, ny, nx)``);
+      (``(nz, ny, nx)``) and ``C_rho`` (the same shape in ρe, else
+      ``None``);
     - ``G``: the slow tendencies ``rho``, ``rho_u``, ``rho_v``, ``rho_w``,
       ``rho_theta``;
-    - ``pert``: the perturbations at the first substep and the sums to add
-      to (read only; the result is in new tensors);
+    - ``pert``: the perturbations at the first substep, in their storage
+      type (the working type, or bfloat16 carries over float32 work), and
+      the sums to add to, in the working type (read only; the result is in
+      new tensors, the carries in the storage type);
     - ``gate_first``: no perturbation pressure gradient on substep 0;
     - ``metrics``: the terrain's metric factors, or ``None`` when flat;
     - ``rho_w_L``: with a sponge (``cols.sponge``), the stage-entry ρwᴸ it
@@ -279,17 +310,28 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
         return acoustic_substeps_plain(cfg, cols, caches, G, pert, dtau, n_tau,
                                        gate_first, metrics, rho_w_L)
     nz, ny, nx = shape = pert.rho.shape
-    fields = dict(zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta",
-                       "sum_rho_u", "sum_rho_v", "sum_rho_w"), pert))
+    store = pert.rho.dtype
+    if store not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel stores the carries in float32 or bfloat16, "
+                         f"got {store}")
+    carried = dict(zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta"), pert[:5]))
+    fields = dict(zip(("sum_rho_u", "sum_rho_v", "sum_rho_w"), pert[5:]))
     fields.update(C_L=caches.C_L, theta_L=caches.theta_L, theta_L_zf=caches.theta_L_zf)
     fields.update({f"G.{k}": getattr(G, k)
                    for k in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta")})
+    crho = caches.C_rho
+    if crho is not None:
+        if metrics is not None:
+            raise ValueError("the C_ρ coupling over terrain has no kernel instance")
+        fields["C_rho"] = crho
     if rho_w_L is not None:
         fields["rho_w_L"] = rho_w_L
+    for name, t in carried.items():
+        _build.require_cuda(name, t, shape, store)
     for name, t in fields.items():
-        _build.require_cuda_f32(name, t, shape)
+        _build.require_cuda(name, t, shape)
     for name in ("inv_dzc", "inv_dzf") + (("sponge",) if cols.sponge is not None else ()):
-        _build.require_cuda_f32(name, getattr(cols, name), (nz,))
+        _build.require_cuda(name, getattr(cols, name), (nz,))
     jz = 0
     if metrics is not None:
         # the four Jacobian factors share a z-extent: 1 (a z-stride of 0 in
@@ -298,10 +340,12 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
         if jz not in (1, nz):
             raise ValueError(f"metric z-extent {jz}: expected 1 or {nz}")
         for name, t in metrics._asdict().items():
-            _build.require_cuda_f32(f"metrics.{name}", t,
-                                    (jz if name in TerrainFields._fields[:4] else nz, ny, nx))
+            _build.require_cuda(f"metrics.{name}", t,
+                                (jz if name in TerrainFields._fields[:4] else nz, ny, nx))
     if n_tau < 1 or dtau <= 0.0:
         raise ValueError("need n_tau >= 1 and dtau > 0")
+    if cfg.damping_mode not in ("thermal", "direct"):
+        raise ValueError(f"unknown damping form {cfg.damping_mode!r}")
 
     # The full-field sponge is a substep-invariant term of the column's
     # right-hand side, Δτ·rate·ramp·ρwᴸ: it folds into G.ρw.
@@ -310,33 +354,43 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
         grw = G.rho_w - cols.sponge[:, None, None] * rho_w_L
 
     # The caller's tensors are read, never written: substep 0 reads them and
-    # writes fresh buffers.  ρu′, ρv′, (ρθ)′ then ping-pong between two
-    # buffers of their own (slots 1 and 2); ρ′, ρw′ and the sums are updated
-    # in place in theirs.
-    new = lambda: torch.empty(shape, dtype=torch.float32, device=pert.rho.device)
-    ru, rv, rt = ([p, new(), new()] for p in (pert.rho_u, pert.rho_v, pert.rho_theta))
-    rho, rw, cp, dp, dd = (new() for _ in range(5))
+    # writes fresh buffers.  ρu′, ρv′, (ρθ)′ and ρ′ are read at neighbouring
+    # columns, so each ping-pongs between two buffers of its own (slots 1
+    # and 2); ρw′ and the sums are updated in place in theirs.  The momenta
+    # after A and the predictors stay in float32: in buffers of their own
+    # under bfloat16 carries, in the carries' output buffers under float32.
+    device = pert.rho.device
+    new = lambda dtype=torch.float32: torch.empty(shape, dtype=dtype, device=device)
+    ru, rv, rt, rho = ([p, new(store), new(store)]
+                       for p in (pert.rho_u, pert.rho_v, pert.rho_theta, pert.rho))
+    rw = new(store)
+    cp, dp, dd = new(), new(), new()
     sums = [new() for _ in range(3)]
-    prev = [pert.rho, pert.rho_w, *pert[5:]]
+    bf16 = store == torch.bfloat16
+    work = [new() for _ in range(4)] if bf16 else None
+    prev_rw, prev_sums = pert.rho_w, list(pert[5:])
     omega, g_acc, damp = cfg.omega, cfg.g_acc, cfg.damping
+    direct = cfg.damping_mode == "direct"
     od2 = omega * omega * dtau * dtau
-    inputs = [caches.C_L, caches.theta_L, caches.theta_L_zf, G.rho_u, G.rho_v,
+    inputs = [caches.C_L, caches.theta_L, caches.theta_L_zf, crho, G.rho_u, G.rho_v,
               grw, G.rho, G.rho_theta, cols.inv_dzc, cols.inv_dzf]
     extra = [*(metrics if metrics is not None else [None] * 8), cols.sponge]
-    ints = [nz, ny, nx, int(bool(damp)), int(metrics is not None),
-            int(cols.sponge is not None), int(jz == nz)]
+    ints = [nz, ny, nx, 0 if not damp else 2 if direct else 1, int(metrics is not None),
+            int(cols.sponge is not None), int(jz == nz), int(crho is not None), int(bf16)]
+    # the damping's factor: αΔx (direct) or αΔx/Δτ (thermal)
+    fac = damp if direct else damp / dtau
+    floats = [1.0 / cfg.dx, 1.0 / cfg.dy, dtau, omega, 0.0, od2, 0.5 * g_acc * od2,
+              g_acc * dtau, dtau * (1.0 - omega), omega * dtau, fac * cfg.dx, fac * cfg.dy]
     src = 0
     for t in range(n_tau):
-        pgf = 0.0 if (t == 0 and gate_first) else 1.0
+        floats[4] = 0.0 if (t == 0 and gate_first) else 1.0   # pgf
         dst = 2 if src == 1 else 1
+        outs = [ru[dst], rv[dst], rt[dst], rho[dst], rw]
         # order fixed by unpack() in csrc/acoustic.cu
-        ptrs = ([ru[src], rv[src], rt[src]] + inputs + prev
-                + [ru[dst], rv[dst], rt[dst], rho, rw, cp, dp, dd] + sums + extra)
-        floats = [1.0 / cfg.dx, 1.0 / cfg.dy, dtau, omega, pgf, od2,
-                  0.5 * g_acc * od2, g_acc * dtau, dtau * (1.0 - omega),
-                  omega * dtau, damp * cfg.dx / dtau, damp * cfg.dy / dtau]
+        ptrs = ([ru[src], rv[src], rt[src], rho[src], prev_rw] + inputs + prev_sums
+                + outs + (work if bf16 else outs[:4]) + [cp, dp, dd] + sums + extra)
         for entry in ("breeze_acoustic_column", "breeze_acoustic_damp"):
-            _build.launch(entry, ptrs, ints, floats, rho)
+            _build.launch(entry, ptrs, ints, floats, cp)
             launches += 1
-        src, prev = dst, [rho, rw, *sums]
-    return Perturbations(rho, ru[src], rv[src], rw, rt[src], *sums)
+        src, prev_rw, prev_sums = dst, rw, sums
+    return Perturbations(rho[src], ru[src], rv[src], rw, rt[src], *sums)

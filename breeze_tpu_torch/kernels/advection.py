@@ -79,8 +79,8 @@ def div_rho_u_c(c, u, v, w, rho, invdz, inv_dx: float, inv_dy: float,
     nzp, nyp, nx = c.shape
     nz, ny = nzp - 2 * H, nyp - 2 * H
     for name, t in (("c", c), ("u", u), ("v", v), ("w", w), ("rho", rho)):
-        _build.require_cuda_f32(name, t, c.shape)
-    _build.require_cuda_f32("invdz", invdz, (nz,))
+        _build.require_cuda(name, t, c.shape)
+    _build.require_cuda("invdz", invdz, (nz,))
     if nx < 4 or ny < 3 or nz < 4:
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
     out = torch.empty((nz, ny, nx), dtype=c.dtype, device=c.device)

@@ -61,8 +61,8 @@ def fix_negative(rho_q: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     if rho_q.device.type == "cpu":
         return fix_negative_plain(rho_q, dz)
     nz, ny, nx = rho_q.shape
-    _build.require_cuda_f32("rho_q", rho_q)
-    _build.require_cuda_f32("dz", dz, (nz,))
+    _build.require_cuda("rho_q", rho_q)
+    _build.require_cuda("dz", dz, (nz,))
     out = torch.empty_like(rho_q)
     lib = _build.library()
     with torch.cuda.device(rho_q.device):

@@ -104,9 +104,9 @@ def momentum_div(ru, rv, rw, u, v, w, invdzc, invdzf,
     nzp, nyp, nx = u.shape
     nz, ny = nzp - 2 * H, nyp - 2 * H
     for name, t in (("ru", ru), ("rv", rv), ("rw", rw), ("u", u), ("v", v), ("w", w)):
-        _build.require_cuda_f32(name, t, u.shape)
+        _build.require_cuda(name, t, u.shape)
     for name, t in (("invdzc", invdzc), ("invdzf", invdzf)):
-        _build.require_cuda_f32(name, t, (nz,))
+        _build.require_cuda(name, t, (nz,))
     if nx < 4 or ny < 3 or nz < 4:
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
     outs = [torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device) for _ in range(3)]

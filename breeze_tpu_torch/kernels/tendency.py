@@ -301,20 +301,20 @@ def fused_tendency(cfg: TendencyConfig, cols: TendencyColumns, u, v, w,
     wins = [("u", u), ("v", v), ("w", w), ("b", b), ("thb", thb)]
     wins += [(f"scalar{k}", c) for k, c in enumerate(scalars)]
     for name, t in wins:
-        _build.require_cuda_f32(name, t, u.shape)
+        _build.require_cuda(name, t, u.shape)
     for name, t in (("colc", cols.colc), ("colf", cols.colf)):
-        _build.require_cuda_f32(name, t, (nzp,))
+        _build.require_cuda(name, t, (nzp,))
     for name, t in (("invdzc", cols.invdzc), ("invdzf", cols.invdzf)):
-        _build.require_cuda_f32(name, t, (nz,))
+        _build.require_cuda(name, t, (nz,))
     if cfg.closure is not None:
         for name in ("invdzc_e", "invdzf_e", "cd2_e"):
-            _build.require_cuda_f32(name, getattr(cols, name), (nzp,))
+            _build.require_cuda(name, getattr(cols, name), (nzp,))
     for n in range(n_out):
-        _build.require_cuda_f32(f"cur{n}", cur[n], (nz, ny, nx))
-        _build.require_cuda_f32(f"prev{n}", prev[n], (nz, ny, nx))
+        _build.require_cuda(f"cur{n}", cur[n], (nz, ny, nx))
+        _build.require_cuda(f"prev{n}", prev[n], (nz, ny, nx))
         for name, c in (("fadd", fadd[n]), ("fdamp", fdamp[n])):
             if c is not None:
-                _build.require_cuda_f32(f"{name}{n}", c, (nz,))
+                _build.require_cuda(f"{name}{n}", c, (nz,))
     if nx < 4 or ny < 3 or nz < 4:
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
 

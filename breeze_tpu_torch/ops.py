@@ -55,6 +55,9 @@ class StencilOps:
     def iz_cf(self, c):
         return 0.5 * (self.v(c) + self.v(c, dz=-1))
 
+    def iz_fc(self, w):
+        return 0.5 * (self.v(w, dz=1) + self.v(w))
+
     def div_c(self, fx, fy, fz):
         """Cell-centered divergence of face fluxes (padded inputs)."""
         return self.dx_fc(fx) + self.dy_fc(fy) + self.dz_fc(fz)

@@ -1,11 +1,17 @@
 """Saturation adjustment and the negative-moisture correction.
 
-Port of the part of ``breeze_tpu/physics/microphysics.py`` that BOMEX runs:
+Port of the part of ``breeze_tpu/physics/microphysics.py`` that BOMEX and
+the moist compressible core run:
 
 - :class:`SaturationAdjustment` with the warm equilibrium, and
   :func:`saturation_adjust`: the analytic-slope Newton on
   r(T) = T − T(θˡⁱ, q_eq(T), p) with the linearized Exner update, from the
   latent-overshoot second guess (cold) or a warm-start temperature;
+- the compressible core's adjustments at the true density,
+  :func:`density_saturation_adjust` (from θˡⁱ) and
+  :func:`density_saturation_adjust_static_energy` (from e), each a secant
+  of a fixed max(iterations + 2, 7) trips, and
+  :func:`density_temperature_inversion` at a fixed partition;
 - :func:`fix_negative_moisture` (the fix-negative kernel, see
   ``kernels/columnar.py``), :func:`species_borrow` and
   :func:`apply_negative_moisture_correction`.
@@ -27,7 +33,7 @@ from ..thermo.saturation import (
     saturation_vapor_pressure,
     saturation_vapor_pressure_slope_ratio,
 )
-from ..thermo.states import temperature_from_theta_li
+from ..thermo.states import temperature_from_static_energy, temperature_from_theta_li
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +149,91 @@ def saturation_adjust(theta_li, qt, p, constants: ThermodynamicConstants,
         torch.where(saturated, q_sat.liquid, 0.0),
         torch.where(saturated, q_sat.ice, 0.0))
     return T, q
+
+
+def _secant(residual, Ta, Tb, trips: int):
+    """``trips`` secant steps from (Ta, Tb); a step whose residual change
+    is not above 1e-30 in magnitude keeps Tb."""
+    ra = residual(Ta)
+    for _ in range(trips):
+        rb = residual(Tb)
+        dr = rb - ra
+        moved = dr.abs() > 1e-30
+        safe = torch.where(moved, dr, torch.ones_like(dr))
+        Tc = torch.where(moved, Tb - rb * (Tb - Ta) / safe, Tb)
+        Ta, ra, Tb = Tb, rb, Tc
+    return Tb
+
+
+def _density_partition(T, rho, qt, constants, eq) -> MoistureMassFractions:
+    """The equilibrium partition at the true density, qᵛ⁺ = pᵛ⁺/(ρRᵛT),
+    guarded to at most max(qᵗ, 0) + 1."""
+    qvs = saturation_specific_humidity(T, rho, constants, eq.liquid_fraction(T))
+    qvs = torch.minimum(qvs, torch.clamp(qt, min=0.0) + 1.0)
+    return equilibrated_moisture_fractions(T, qt, qvs, eq)
+
+
+def density_saturation_adjust(theta_li, rho, qt, constants: ThermodynamicConstants,
+                              scheme: SaturationAdjustment, p_standard: float = 1.0e5):
+    """``(T, q, p)`` at density ρ from (θˡⁱ, qᵗ): the secant on
+    r(T) = θˡⁱ(T; q_eq(T, ρ), p = ρRᵐT) − θ₀ from the dry closed form
+    T₁ = θ(ρRᵈθ/pˢᵗ)^(Rᵈ/cᵛᵈ) and T₁ + 1, which covers both branches
+    (unsaturated cells partition to vapor alone)."""
+    eq = scheme.equilibrium
+    Ll = constants.liquid.reference_latent_heat
+    Li = constants.ice.reference_latent_heat
+
+    def residual(T):
+        q = _density_partition(T, rho, qt, constants, eq)
+        Rm = constants.mixture_gas_constant(q)
+        cpm = constants.mixture_heat_capacity(q)
+        p = rho * Rm * T
+        return ((T - (Ll * q.liquid + Li * q.ice) / cpm) * (p_standard / p) ** (Rm / cpm)
+                - theta_li)
+
+    Rd = constants.Rd
+    cvd = constants.dry_air.heat_capacity - Rd
+    T1 = theta_li * (rho * Rd * theta_li / p_standard) ** (Rd / cvd)
+    T = _secant(residual, T1, T1 + 1.0, max(scheme.iterations + 2, 7))
+    q = _density_partition(T, rho, qt, constants, eq)
+    return T, q, rho * constants.mixture_gas_constant(q) * T
+
+
+def density_saturation_adjust_static_energy(e, z, rho, qt,
+                                            constants: ThermodynamicConstants,
+                                            scheme: SaturationAdjustment):
+    """``(T, q, p)`` at density ρ from (e, qᵗ): the secant on the fixed
+    point T = (e − gz + ℒˡqˡ(T) + ℒⁱqⁱ(T))/cᵖᵐ(q(T)) from the all-vapor
+    T₁ and T₁ + 1, taken only where qᵗ exceeds qᵛ⁺(T₁); p = ρRᵐT."""
+    eq = scheme.equilibrium
+    partition = lambda T: _density_partition(T, rho, qt, constants, eq)
+    residual = lambda T: T - temperature_from_static_energy(e, z, partition(T), constants)
+    q1 = MoistureMassFractions.vapor_only(qt)
+    T1 = temperature_from_static_energy(e, z, q1, constants)
+    saturated = qt > saturation_specific_humidity(T1, rho, constants, eq.liquid_fraction(T1))
+    Tb = _secant(residual, T1, T1 + 1.0, max(scheme.iterations + 2, 7))
+    q_sat = partition(Tb)
+    T = torch.where(saturated, Tb, T1)
+    q = MoistureMassFractions(torch.where(saturated, q_sat.vapor, q1.vapor),
+                              torch.where(saturated, q_sat.liquid, 0.0),
+                              torch.where(saturated, q_sat.ice, 0.0))
+    return T, q, rho * constants.mixture_gas_constant(q) * T
+
+
+def density_temperature_inversion(theta_li, rho, q: MoistureMassFractions, constants,
+                                  p_standard: float = 1.0e5, iterations: int = 5):
+    """``(T, p)`` from θˡⁱ at a fixed partition q and density ρ: the secant
+    on (T − ℒq/cᵖᵐ)(pˢᵗ/ρRᵐT)^(Rᵐ/cᵖᵐ) − θ₀ from T₁ = θ(ρRᵐθ/pˢᵗ)^(Rᵐ/cᵛᵐ)
+    and T₁ + 1, ``iterations`` + 1 trips."""
+    Rm = constants.mixture_gas_constant(q)
+    cpm = constants.mixture_heat_capacity(q)
+    kappa = Rm / cpm
+    lheat = (constants.liquid.reference_latent_heat * q.liquid
+             + constants.ice.reference_latent_heat * q.ice) / cpm
+    residual = lambda T: (T - lheat) * (p_standard / (rho * Rm * T)) ** kappa - theta_li
+    T1 = theta_li * (rho * Rm * theta_li / p_standard) ** (Rm / (cpm - Rm))
+    T = _secant(residual, T1, T1 + 1.0, iterations + 1)
+    return T, rho * Rm * T
 
 
 def fix_negative_moisture(rho_q, dz_col):

@@ -2,11 +2,12 @@
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
-    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble|ridge] [--trace FILE]
+    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble|ridge|moist] [--trace FILE]
 
 It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s), the
-256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s) or that bubble
-over the ridge (σ-coordinates, ``ridge.py``), runs three warm-up steps,
+256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s), that bubble
+over the ridge (σ-coordinates, ``ridge.py``) or the moist bubble in ρe with
+direct damping, runs three warm-up steps,
 times two steps
 without the profiler (host clock ending in a synchronize), then traces
 as many again with ``torch.profiler``.  From the trace's device events
@@ -30,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import bomex, bubble, ridge
-from .dynamics.compressible import acoustic_rk3_step
+from .dynamics.compressible import DirectDivergenceDamping, acoustic_rk3_step
 from .timesteppers import ssp_rk3_step
 
 STEPS = 2
@@ -60,7 +61,7 @@ def kind(event: dict) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--case", choices=("bomex", "bubble", "ridge"), default="bomex")
+    parser.add_argument("--case", choices=("bomex", "bubble", "ridge", "moist"), default="bomex")
     parser.add_argument("--trace", help="keep the Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -79,6 +80,11 @@ def main() -> None:
         if args.case == "bubble":
             label = "256x256x128 dry bubble"
             model = bubble.bubble_model(size, device="cuda")
+        elif args.case == "moist":
+            label = "256x256x128 moist bubble in rho-e with direct damping"
+            model = bubble.bubble_model(size, device="cuda", moist=True,
+                                        formulation="static_energy",
+                                        damping=DirectDivergenceDamping(0.1))
         else:
             label = "256x256x128 bubble over the ridge"
             model = ridge.ridge_model(size, device="cuda")

@@ -44,7 +44,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
 13. the terrain slice: the 256×256×128 bubble over the ridge (``bench.py
     --dynamics compressible --terrain``), 2 warm-up and 10 timed steps, with
     the launch counts, finiteness and the ∫Jρ dV / ∫Jρθ dV drift checked;
-14. a per-layer breakdown of one more ridge step.
+14. a per-layer breakdown of one more ridge step;
+15. the acoustic kernel's C_ρ, direct-damping and bfloat16-carry branches
+    against its plain version at 256×256×128: one 7-substep stage each of
+    C_ρ + thermal, θ + direct, C_ρ + direct (on the noisy moist bubble in
+    ρe or ρθ) and bfloat16 carries (the noisy dry bubble);
+16. two steps of the noisy moist bubble in ρe with direct damping at
+    64×32×32 through the kernels against the same steps through the plain
+    versions on the CPU;
+17. the moist slice, 2 warm-up and 10 timed steps each at 256×256×128 of
+    the moist bubble in ρθ (``bench.py --dynamics compressible --moist``),
+    the moist bubble in ρe with direct damping, and the dry bubble with
+    bfloat16 carries (``--substep-floattype bfloat16``), with the launch
+    counts, finiteness and the ∫ρ dV, ∫ρθ dV, ∫ρqᵗ dV drift checked;
+18. a per-layer breakdown of one more moist ρe step.
 
 Each path's launch counts are zeroed just before its timed steps and read
 just after.  The line before the last is a JSON object with one entry per
@@ -55,6 +68,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -86,7 +100,7 @@ DRIFT_BOUND = {"rho_theta": 5e-6, "rho_qt": 5e-6}
 # (1−α is rounded on the host) and a Δt at which αΔt·G stands well above the
 # float32 rounding of the O(1)–O(300) state it is added to
 ALPHA, PARITY_DT = 2.0 / 3.0, 3.0
-PHASES = 14
+PHASES = 18
 
 # The compressible slice: bench.py --dynamics compressible
 SIZE_C = (256, 256, 128)
@@ -111,6 +125,19 @@ RIDGE_DRIFT_BOUND = {"rho": 2e-8, "rho_theta": 2e-8}
 # the parity cases' SLEVE decay heights and sponge depth on the 3.2 km domain
 SLEVE = dict(large_scale_height=1600.0, small_scale_height=800.0)
 SPONGE_DEPTH = 1000.0
+# The moist slice's three paths, as bubble_model's options.  The drift of
+# ∫ρ dV, ∫ρθ dV and ∫ρqᵗ dV is flux form (the repair of negative ρqᵗ keeps
+# each column's total), so the moist ρθ path keeps the dry bubble's bound;
+# in ρe the buoyancy work moves ∫ρe dV, which is printed but not gated;
+# bfloat16 carries round ρ′ to 8 bits each substep, which is not flux form,
+# so that path gates on finiteness and the kernel limit alone.
+MOIST_PATHS = {
+    "moist_theta": (dict(moist=True), {"rho": 5e-8, "rho_theta": 5e-8, "rho_qt": 5e-8}),
+    "moist_rhoe_direct": (dict(moist=True, formulation="static_energy",
+                               damping=C.DirectDivergenceDamping(0.1)),
+                          {"rho": 5e-8, "rho_qt": 5e-8}),
+    "bf16": (dict(substep_floattype="bfloat16"), {}),
+}
 
 # The least time of a kernel's work: its bytes (each input read once, each
 # output written once) at the H100 SXM's 3.35 TB/s, or its float32
@@ -127,6 +154,11 @@ OPS_PER_POINT = {
     "acoustic_substeps": 110,  # per substep: A 12, B 34, C 35, D 10, E 16, sums 3
     # + the slope PGF 24, J-weighted fluxes 8, S′ 18, 1/J factors 20
     "acoustic_substeps_terrain": 180,
+    # + C_ρρ′ in A 2, in C's pressures 4, its couplings in the coefficients 18
+    "acoustic_substeps_crho": 135,
+    # the direct form: δ 7 and E 14 for the thermal form's E 16
+    "acoustic_substeps_direct": 115,
+    "acoustic_substeps_crho_direct": 140,
 }
 
 
@@ -201,10 +233,21 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-#: the acoustic column kernel's instances by their (terrain, sponge) flags
-ACOUSTIC_COLUMN = {"ILb0ELb0E": "acoustic_column[flat]", "ILb0ELb1E": "acoustic_column[sponge]",
-                   "ILb1ELb0E": "acoustic_column[terrain]",
-                   "ILb1ELb1E": "acoustic_column[terrain+sponge]"}
+#: the acoustic kernels' template arguments in their mangled names: the
+#: storage type, then the column kernel's terrain, sponge and C_ρ flags
+ACOUSTIC_INSTANCE = re.compile(r"acoustic_(column|damp)_kernelI(f|13__nv_bfloat16)"
+                               r"(?:Lb([01])ELb([01])ELb([01])E)?")
+
+
+def acoustic_label(line: str) -> str:
+    """``acoustic_column[flat]``, ``acoustic_column[terrain+sponge]``,
+    ``acoustic_damp[bf16]``, … for a ptxas line naming an instance."""
+    kernel, storage, *flags = ACOUSTIC_INSTANCE.search(line).groups()
+    parts = ["bf16"] if storage != "f" else []
+    parts += [n for n, f in zip(("terrain", "sponge", "crho"), flags) if f == "1"]
+    if kernel == "damp":
+        return "acoustic_damp" + (f"[{'+'.join(parts)}]" if parts else "")
+    return f"acoustic_column[{'+'.join(parts) or 'flat'}]"
 
 
 def phase_build() -> dict:
@@ -219,8 +262,8 @@ def phase_build() -> dict:
                                       "fix_negative", "momentum_div",
                                       "div_rho_u_c", "acoustic_column",
                                       "acoustic_damp") if k in line), "?")
-            if entry == "acoustic_column":
-                entry = next(v for k, v in ACOUSTIC_COLUMN.items() if k in line)
+            if entry.startswith("acoustic"):
+                entry = acoustic_label(line)
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
         elif "Used" in line and "registers" in line and entry:
@@ -436,9 +479,10 @@ def phase_breakdown(model, state, label: str) -> None:
 
 
 def noisy_bubble(model, seed: int):
-    """The bubble with noise on the momenta (0.5·N(0, 1), ρw off the
-    bottom face) and ρθ (0.05·N(0, 1)): every WENO and Coriolis term of the
-    slow tendencies is then non-trivial."""
+    """The bubble (dry or moist) with noise on the momenta (0.5·N(0, 1), ρw
+    off the bottom face) and ρθ (0.05·N(0, 1); in ρe 50·N(0, 1), about the
+    same pressure noise): every WENO and Coriolis term of the slow
+    tendencies is then non-trivial."""
     g = model.grid
     rng = np.random.default_rng(seed)
     gauss = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
@@ -446,8 +490,9 @@ def noisy_bubble(model, seed: int):
     state = bubble.bubble_state(model)
     rho_w = state.rho_w + gauss(0.2)
     rho_w[0] = 0.0
+    scale = 1e3 if model.formulation == "static_energy" else 1.0
     return state.replace(rho_u=state.rho_u + gauss(0.5), rho_v=state.rho_v + gauss(0.5),
-                         rho_w=rho_w, rho_theta=state.rho_theta + gauss(0.05))
+                         rho_w=rho_w, rho_theta=state.rho_theta + gauss(0.05 * scale))
 
 
 def check_rel(what: str, pairs, limit: float) -> float:
@@ -577,35 +622,40 @@ def phase_compressible_small() -> None:
 
 
 def volume_totals(model, state) -> dict:
-    """∫ρ dV and ∫ρθ dV, with J in σ-coordinates (per unit horizontal area
-    of a cell)."""
+    """∫ρ dV, ∫ρθ dV (∫ρe dV in ρe) and with moisture ∫ρqᵗ dV, with J in
+    σ-coordinates (per unit horizontal area of a cell)."""
     w = model.grid.dz_c_col.double()
     if model.terrain is not None:
         w = w * model.terrain.jac_c3.double()
-    return {k: float((getattr(state, k).double() * w).sum()) for k in C_DRIFT_BOUND}
+    return {k: float((getattr(state, k).double() * w).sum())
+            for k in ("rho", "rho_theta", "rho_qt") if getattr(state, k) is not None}
 
 
 def phase_compressible_slice(model, state, label: str, phase: int = 9,
                              what: str = "dry bubble",
                              drift_bound=C_DRIFT_BOUND) -> tuple[dict, object]:
+    """2 warm-up and 10 timed steps; each total in ``drift_bound`` gated,
+    every total's drift printed."""
+    moist = model.has_moisture
     totals0 = volume_totals(model, state)
     for _ in range(WARMUP):
         state = bt.acoustic_rk3_step(model, state, DT_C)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    momentum.launches = advection.launches = acoustic.launches = 0
+    momentum.launches = advection.launches = acoustic.launches = columnar.launches = 0
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state = bt.acoustic_rk3_step(model, state, DT_C)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = {"momentum_div": momentum.launches, "div_rho_u_c": advection.launches,
-              "acoustic_substeps": acoustic.launches}
-    # three stages; 3 + 4 + 7 substeps of two launches each
-    if counts != {"momentum_div": 3 * STEPS, "div_rho_u_c": 3 * STEPS,
-                  "acoustic_substeps": 28 * STEPS}:
+              "acoustic_substeps": acoustic.launches, "fix_negative": columnar.launches}
+    # three stages; 3 + 4 + 7 substeps of two launches each; with moisture ρqᵗ
+    # through the scalar kernel once a stage and its repair once a step
+    if counts != {"momentum_div": 3 * STEPS, "div_rho_u_c": (6 if moist else 3) * STEPS,
+                  "acoustic_substeps": 28 * STEPS, "fix_negative": STEPS if moist else 0}:
         raise AssertionError(f"the compressible path missed its kernels: {counts}")
-    for name in C_NAMES:
+    for name in C_NAMES + (("rho_qt",) if moist else ()):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"{name} is not finite after {WARMUP + STEPS} steps")
     totals1 = volume_totals(model, state)
@@ -618,16 +668,20 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
     print(f"[{phase}/{PHASES}] 256x256x128 {what}: {ms:.2f} ms/step, "
           f"{points / (ms * 1e-3):.4e} points/s on {label}; launches {counts}; "
           f"max |rho_w| {float(state.rho_w.abs().max()):.3e}; drift "
-          f"rho {drift['rho']:.2e} rho_theta {drift['rho_theta']:.2e}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          + " ".join(f"{k} {v:.2e}" + ("" if k in drift_bound else " (not gated)")
+                     for k, v in drift.items())
+          + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts, state
 
 
 def phase_compressible_breakdown(model, state, label: str, phase: int = 10,
                                  what: str = "bubble") -> None:
-    """One step with the device drained between layers (host clock)."""
+    """One step with the device drained between layers (host clock); with
+    moisture the step-start repair and the scalar transport too."""
     spans = {"diagnose+caches": 0.0, "slow tendencies": 0.0, "acoustic loop": 0.0,
              "recovery": 0.0}
+    if model.has_moisture:
+        spans = {"fix_negative": 0.0, **spans, "scalars": 0.0}
 
     def timed(key, fn):
         torch.cuda.synchronize()
@@ -638,19 +692,26 @@ def phase_compressible_breakdown(model, state, label: str, phase: int = 10,
         return out
 
     plan = C.stage_substep_plan(C.substep_count(model, DT_C), DT_C)
+    if model.has_moisture:
+        state = timed("fix_negative", lambda: apply_negative_moisture_correction(model, state))
     state_n = state
     def diagnose():
         aux = C.compressible_diagnose(model, state)
         return aux, C.stage_caches(model, state, aux)
 
-    for n_tau, dtau in plan:
+    for beta, (n_tau, dtau) in zip(C.WS_RK3_BETAS, plan):
         aux, caches = timed("diagnose+caches", diagnose)
         G = timed("slow tendencies", lambda: C.stage_slow_tendencies(model, state, aux))
         pert = timed("acoustic loop", lambda: acoustic.acoustic_substeps(
             model.acoustic_config, model.z_columns, caches, G,
-            C.stage_perturbations(state_n, state), dtau, n_tau, n_tau > 1,
-            metrics=model.acoustic_metrics, rho_w_L=C.sponge_rho_w_L(model, state)))
-        state = timed("recovery", lambda: C.recover(model, state, pert))
+            C.stage_perturbations(state_n, state, model.substep_dtype), dtau, n_tau,
+            n_tau > 1, metrics=model.acoustic_metrics,
+            rho_w_L=C.sponge_rho_w_L(model, state)))
+        new = timed("recovery", lambda: C.recover(model, state, pert))
+        if model.has_moisture:
+            new = timed("scalars", lambda: C.advance_scalars(model, state_n, state, new, pert,
+                                                             n_tau, beta * DT_C, G))
+        state = new
     total = sum(spans.values())
     print(f"[{phase}/{PHASES}] one {what} step by layer on {label}, ms (synchronized): "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
@@ -762,6 +823,117 @@ def phase_terrain_small() -> None:
                                            for (d, t), v in drift.items()))
 
 
+#: phase 15's cases: (bubble_model's options, the OPS_PER_POINT key, the
+#: column kernel's instance, the damp kernel's instance)
+BRANCH_CASES = {
+    "crho+direct": (dict(moist=True, formulation="static_energy",
+                         damping=C.DirectDivergenceDamping(0.1)),
+                    "acoustic_substeps_crho_direct", "acoustic_column[crho]", "acoustic_damp"),
+    "crho+thermal": (dict(moist=True, formulation="static_energy"),
+                     "acoustic_substeps_crho", "acoustic_column[crho]", "acoustic_damp"),
+    "theta+direct": (dict(moist=True, damping=C.DirectDivergenceDamping(0.1)),
+                     "acoustic_substeps_direct", "acoustic_column[flat]", "acoustic_damp"),
+    "bf16": (dict(substep_floattype="bfloat16"), "acoustic_substeps",
+             "acoustic_column[bf16]", "acoustic_damp[bf16]"),
+}
+
+
+def phase_branch_parity(device, registers: dict) -> list[dict]:
+    """The acoustic kernel's C_ρ, direct-damping and bfloat16 branches
+    against the plain loop at 256×256×128, one 7-substep stage each from
+    the noisy bubble of the branch's configuration with noise 1e-3·N(0, 1)
+    on the five perturbations: one entry for the moist ρe + direct path's
+    branch (C_ρ + direct) with the C_ρ + thermal and θ + direct cases as its
+    variants, one for the bfloat16 path's."""
+    results, lines = {}, []
+    for case, (kw, ops, column, damp) in BRANCH_CASES.items():
+        model = bubble.bubble_model(SIZE_C, device=device, **kw)
+        g = model.grid
+        s = noisy_bubble(model, SEED + 8)
+        aux = C.compressible_diagnose(model, s)
+        caches = C.stage_caches(model, s, aux)
+        G = C.slow_tendencies(model, s, aux)
+        rng = np.random.default_rng(SEED + 9)
+        pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype,
+                                device=g.device) for _ in range(5)]
+        pert[3][0] = 0.0
+        pert = [p.to(model.substep_dtype or g.dtype) for p in pert]
+        zero = torch.zeros(g.shape, dtype=g.dtype, device=g.device)
+        pert = acoustic.Perturbations(*pert, zero, zero, zero)
+        n_tau = 7
+        stage = (model.acoustic_config, model.z_columns, caches, G, pert,
+                 DT_C / n_tau, n_tau, True)
+        got = acoustic.acoustic_substeps(*stage)
+        torch.cuda.synchronize()
+        # float32 as phase 7: 5e-5 of each output's largest value; bfloat16
+        # carries may round the other way where the kernel's and the plain
+        # version's float32 results straddle a rounding boundary: 3e-2, the
+        # TPU kernel's test's limit for them
+        limit = 3e-2 if case == "bf16" else 5e-5
+        pairs = list(zip(acoustic.Perturbations._fields, got,
+                         acoustic.acoustic_substeps_plain(*stage)))
+        max_abs = check_rel(f"acoustic_substeps ({case})", pairs, limit)
+        worst = max(rel_to_max(g_, r_)[1] for _, g_, r_ in pairs)
+        del pairs
+        entry = dict(case=case, max_abs_err=max_abs,
+                     ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage), 5),
+                     plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage), 1),
+                     registers={k: registers.get(k) for k in (column, damp)},
+                     **bound(ops, flat(caches, G, pert, model.z_columns.inv_dzc,
+                                       model.z_columns.inv_dzf),
+                             got, g.shape, n_tau * g.nx * g.ny * g.nz))
+        results[case] = entry
+        lines.append(f"{case}: max abs err {max_abs:.3e}, relative {worst:.2e} (limit "
+                     f"{limit}), kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
+                     f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                     f"{registers.get(column)}")
+        del model, s, aux, caches, G, pert, got, stage
+        torch.cuda.empty_cache()
+    print(f"[15/{PHASES}] acoustic kernel's C_ρ, direct and bf16 branches at 256x256x128 "
+          "(one 7-substep stage), against its plain version: " + "; ".join(lines))
+    entries = []
+    for name, main, variants in (("acoustic_substeps_rhoe_direct", "crho+direct",
+                                  ("crho+thermal", "theta+direct")),
+                                 ("acoustic_substeps_bf16", "bf16", ())):
+        entry = results[main]
+        entry.pop("case")
+        entries.append(dict(name=name, route="cuda", source="breeze_tpu_torch/csrc/acoustic.cu",
+                            replaces="breeze_tpu/pallas_kernels/acoustic.py:876", **entry,
+                            variants=[results[v] for v in variants]))
+    return entries
+
+
+def phase_moist_small() -> None:
+    """Two steps of the noisy moist bubble in ρe with direct damping at
+    64×32×32 (Δx = 50 m, Δz = 25 m) through the CUDA kernels against the
+    same steps through the plain versions on the CPU, as phase 8; beside
+    each field's distance, the CPU float32-vs-float64 distance."""
+    kw = MOIST_PATHS["moist_rhoe_direct"][0]
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = bubble.bubble_model((64, 32, 32), dtype=dtype, device=device,
+                                    extent=(3_200.0, 1_600.0, 800.0), **kw)
+        state = noisy_bubble(model, SEED + 10)
+        for _ in range(2):
+            state = bt.acoustic_rk3_step(model, state, DT_C)
+        runs[device, dtype] = {k: getattr(state, k).cpu().double()
+                               for k in C_NAMES + ("rho_qt",)}
+    worst = []
+    for name in C_NAMES + ("rho_qt",):
+        ref, f64 = runs["cpu", torch.float32][name], runs["cpu", torch.float64][name]
+        scale = float(f64.abs().max())
+        err = float((runs["cuda", torch.float32][name] - ref).abs().max()) / scale
+        noise = float((ref - f64).abs().max()) / scale
+        worst.append(f"{name} {err:.2e} (f32-vs-f64 {noise:.2e})")
+        if not err < C_SMALL_LIMIT:
+            raise AssertionError(f"64x32x32 moist rhoe bubble after 2 steps, {name}: rel "
+                                 f"{err:.3e} (limit {C_SMALL_LIMIT})")
+    print(f"[16/{PHASES}] 64x32x32 noisy moist bubble in rho-e with direct damping, 2 steps, "
+          f"CUDA vs CPU plain float32 (state-relative, limit {C_SMALL_LIMIT}): "
+          + ", ".join(worst))
+
+
 def main() -> int:
     name, smi = phase_device()
     registers = phase_build()
@@ -779,7 +951,7 @@ def main() -> int:
     phase_compressible_small()
     c_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi)
     phase_compressible_breakdown(model, state, smi)
-    counts.update(c_counts)
+    counts.update({k: v for k, v in c_counts.items() if k != "fix_negative"})
     del model, state
     torch.cuda.empty_cache()
     entries.append(phase_terrain_parity(device, registers))
@@ -789,15 +961,56 @@ def main() -> int:
                                                "bubble over the ridge", RIDGE_DRIFT_BOUND)
     phase_compressible_breakdown(model, state, smi, 14, "ridge")
     counts["acoustic_substeps_terrain"] = r_counts["acoustic_substeps"]
+    del model, state
+    torch.cuda.empty_cache()
+    # launches per step of every kernel on each path
+    per_step = {"bomex": {k: counts[k] / STEPS for k in ("fused_tendency", "fix_negative")},
+                "bubble": {k: v / STEPS for k, v in c_counts.items()},
+                "ridge": {k: v / STEPS for k, v in r_counts.items()}}
+    entries += phase_branch_parity(device, registers)
+    phase_moist_small()
+    for path, (kw, gates) in MOIST_PATHS.items():
+        model = bubble.bubble_model(SIZE_C, device=device, **kw)
+        p_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi, 17,
+                                                   path.replace("_", " ") + " bubble", gates)
+        per_step[path] = {k: v / STEPS for k, v in p_counts.items()}
+        if path == "moist_rhoe_direct":
+            rhoe = model, state
+        del model, state
+        torch.cuda.empty_cache()
+    phase_compressible_breakdown(*rhoe, smi, 18, "moist rho-e + direct")
+    counts["acoustic_substeps_rhoe_direct"] = per_step["moist_rhoe_direct"][
+        "acoustic_substeps"] * STEPS
+    counts["acoustic_substeps_bf16"] = per_step["bf16"]["acoustic_substeps"] * STEPS
+    # the acoustic wrapper counts its instances together; each acoustic entry
+    # measures the instance that one path's model runs
+    acoustic_instance = {"bubble": "acoustic_substeps", "ridge": "acoustic_substeps_terrain",
+                         "moist_theta": "acoustic_substeps",
+                         "moist_rhoe_direct": "acoustic_substeps_rhoe_direct",
+                         "bf16": "acoustic_substeps_bf16"}
+
+    def launches_per_step(kernel, path):
+        if kernel.startswith("acoustic_substeps"):
+            runs = acoustic_instance.get(path) == kernel
+            return per_step[path].get("acoustic_substeps", 0) if runs else 0
+        return per_step[path].get(kernel, 0)
+
     kernel_registers = {"fused_tendency": ("fused_tendency", "smagorinsky_nu"),
                         "fix_negative": ("fix_negative",),
                         "momentum_div": ("momentum_div",), "div_rho_u_c": ("div_rho_u_c",),
                         "acoustic_substeps": ("acoustic_column[flat]", "acoustic_damp"),
                         "acoustic_substeps_terrain": ("acoustic_column[terrain]",
-                                                      "acoustic_damp")}
+                                                      "acoustic_damp"),
+                        "acoustic_substeps_rhoe_direct": ("acoustic_column[crho]",
+                                                          "acoustic_damp"),
+                        "acoustic_substeps_bf16": ("acoustic_column[bf16]",
+                                                   "acoustic_damp[bf16]")}
     for entry in entries:
-        entry["launches"] = counts[entry["name"]]
-        entry["registers"] = {k: registers.get(k) for k in kernel_registers[entry["name"]]}
+        kernel = entry["name"]
+        entry["launches"] = int(counts[kernel])
+        entry["registers"] = {k: registers.get(k) for k in kernel_registers[kernel]}
+        entry["launches_per_step"] = {path: launches_per_step(kernel, path)
+                                      for path in per_step}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -213,6 +213,106 @@ def test_cuda_acoustic_matches_plain(cuda_device, size, stretched, damping, n_ta
         assert _rel_to_max(g, r) < 5e-5, name
 
 
+def _branch_model(size, stretched, device, formulation, direct, bf16):
+    """The moist bubble configuration on an (nx, ny, nz) grid with Δx = 50 m
+    and z uniform (25 m) or stretched, in ``formulation``, with direct or
+    thermal damping and bfloat16 or float32 carries; its state with noise on
+    the momenta and the thermodynamic slot (×1000 in ρe, about the same
+    pressure noise)."""
+    nx, ny, nz = size
+    z = (np.concatenate([[0.0], np.cumsum(20.0 * 1.05 ** np.arange(nz))])
+         if stretched else (0.0, 25.0 * nz))
+    g = bt.make_grid(size, x=(0.0, 50.0 * nx), y=(0.0, 50.0 * ny), z=z,
+                     dtype=torch.float32, device=device)
+    model = TC.make_compressible_model(
+        g, advection=bt.WENO(5), coriolis=bt.FPlane(1e-4), formulation=formulation,
+        microphysics=bt.SaturationAdjustment(),
+        time_discretization=TC.SplitExplicitTimeDiscretization(
+            substep_floattype="bfloat16" if bf16 else None,
+            damping=TC.DirectDivergenceDamping(0.1) if direct else None))
+    state = bubble.bubble_state(model)
+    rng = np.random.default_rng(11)
+    noise = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=device)
+    rho_w = state.rho_w + noise(0.2)
+    rho_w[0] = 0.0
+    scale = 1e3 if formulation == "static_energy" else 1.0
+    return model, state.replace(rho_u=state.rho_u + noise(0.5), rho_v=state.rho_v + noise(0.5),
+                                rho_w=rho_w, rho_theta=state.rho_theta + noise(0.05 * scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch,size,stretched,n_tau,gate", [
+    ("crho_thermal", (64, 32, 32), False, 7, True),
+    ("theta_direct", (36, 20, 13), True, 4, True),
+    ("crho_direct", (64, 32, 32), True, 7, True),
+    ("crho_direct", (36, 20, 13), False, 3, False),
+    ("bf16", (64, 32, 32), False, 7, True),
+    ("bf16_crho_direct", (36, 20, 13), True, 4, True)],
+    ids=["blocks_crho_thermal", "ragged_stretched_theta_direct",
+         "blocks_stretched_crho_direct", "ragged_crho_direct_ungated", "blocks_bf16",
+         "ragged_stretched_bf16_crho_direct"])
+def test_cuda_acoustic_branches_match_plain(cuda_device, branch, size, stretched, n_tau, gate):
+    """The C_ρ (ρe), direct-damping and bfloat16-carry branches of the
+    acoustic kernel against the plain loop on the card, on the moist bubble
+    with noise on the perturbations and the sums."""
+    formulation = "static_energy" if "crho" in branch else "potential_temperature"
+    bf16 = branch.startswith("bf16")
+    model, state = _branch_model(size, stretched, cuda_device, formulation,
+                                 "direct" in branch, bf16)
+    aux = TC.compressible_diagnose(model, state)
+    caches = TC.stage_caches(model, state, aux)
+    assert (caches.C_rho is not None) == ("crho" in branch)
+    G = TC.slow_tendencies(model, state, aux)
+    rng = np.random.default_rng(12)
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, model.grid.shape), dtype=torch.float32,
+                            device=cuda_device) for _ in range(8)]
+    pert[3][0] = 0.0
+    if bf16:
+        pert[:5] = [p.to(torch.bfloat16) for p in pert[:5]]
+    pert = acoustic.Perturbations(*pert)
+    kept = [p.clone() for p in pert]
+    args = (model.acoustic_config, model.z_columns, caches, G, pert, 0.5 / 7, n_tau, gate)
+    before = acoustic.launches
+    got = acoustic.acoustic_substeps(*args)
+    torch.cuda.synchronize()
+    assert acoustic.launches == before + 2 * n_tau
+    for name, p, k in zip(acoustic.Perturbations._fields, pert, kept):
+        assert torch.equal(p, k), f"the kernel wrote its input {name}"
+    for name, g, r in zip(acoustic.Perturbations._fields, got,
+                          acoustic.acoustic_substeps_plain(*args)):
+        assert g.dtype == r.dtype, name
+        # float32, the kernel's two divides against the plain 1/den and its
+        # FMA contraction: 5e-5 of the largest value, as the TPU kernel's
+        # test; bfloat16 carries may round the other way where the two
+        # float32 results straddle a rounding boundary: 3e-2, its limit
+        assert _rel_to_max(g, r) < (3e-2 if bf16 else 5e-5), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(moist=True),
+                                dict(moist=True, formulation="static_energy",
+                                     damping=TC.DirectDivergenceDamping(0.1)),
+                                dict(substep_floattype="bfloat16")],
+                         ids=["moist_theta", "moist_rhoe_direct", "bf16"])
+def test_cuda_bubble_variant_step_goes_through_the_kernels(cuda_device, kw):
+    """One step of each bubble variant: the moist ones advect ρqᵗ through
+    the scalar kernel (3 more launches) and repair it at step start."""
+    model = bubble.bubble_model((64, 32, 32), device=cuda_device,
+                                extent=(3_200.0, 1_600.0, 800.0), **kw)
+    state = bubble.bubble_state(model)
+    counts = (momentum.launches, advection.launches, acoustic.launches, columnar.launches)
+    state = bt.acoustic_rk3_step(model, state, 0.5)
+    torch.cuda.synchronize()
+    moist = bool(kw.get("moist"))
+    assert (momentum.launches - counts[0], advection.launches - counts[1],
+            acoustic.launches - counts[2], columnar.launches - counts[3]) == (
+        3, 6 if moist else 3, 28, 1 if moist else 0)
+    for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta") + (("rho_qt",) if moist else ()):
+        assert getattr(state, name).dtype == torch.float32, name
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+
+
 def _terrain_model(size, kind, sponge, stretched, device):
     """A ridge that varies in y, over an (nx, ny, nz) grid with Δx = 50 m
     and z uniform (25 m) or stretched: ``kind`` is ``linear``

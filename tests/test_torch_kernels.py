@@ -333,7 +333,7 @@ def test_acoustic_plain_matches_pallas_interpret(damping, gate_first):
         tg, advection=bt.WENO(5),
         time_discretization=bt.SplitExplicitTimeDiscretization(
             damping_coefficient=damping))
-    t = lambda a: torch.tensor(np.asarray(a))
+    t = lambda a: None if a is None else torch.tensor(np.asarray(a))   # C_rho, rho_qt
     got = acoustic.acoustic_substeps(
         tm.acoustic_config, tm.z_columns,
         TC.StageCaches(*(t(getattr(caches, k)) for k in TC.StageCaches._fields)),

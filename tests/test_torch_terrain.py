@@ -278,7 +278,7 @@ def test_terrain_plain_matches_pallas_interpret(terrain, sponge):
         {k: None if getattr(model.terrain, k) is None else np.asarray(getattr(model.terrain, k))
          for k in convert.TERRAIN_FIELDS},
         height=model.terrain.height, dtype=torch.float32, device="cpu")
-    t = lambda a: torch.tensor(np.asarray(a))
+    t = lambda a: None if a is None else torch.tensor(np.asarray(a))   # C_rho, rho_qt
     got = acoustic.acoustic_substeps(
         tm.acoustic_config, tm.z_columns,
         TC.StageCaches(*(t(getattr(caches, k)) for k in TC.StageCaches._fields)),
