@@ -5,6 +5,9 @@ The configuration ``bench.py`` measures for ``breeze_tpu`` (its
 periodic in x and y, WENO5, warm saturation adjustment, Smagorinsky-Lilly
 with the θᵥ correction, an f-plane, prescribed surface fluxes, and the
 geostrophic, subsidence, drying and sponge forcings.
+
+``coriolis=BETA_PLANE`` puts the case on BOMEX's β-plane, which takes the
+anelastic route outside the fused tendency kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from .advection import WENO
 from .grid import BOUNDED, PERIODIC, make_grid
 from .model import AtmosphereModel, State, initial_state, make_model
 from .physics.closures import SmagorinskyLilly
-from .physics.coriolis import FPlane
+from .physics.coriolis import BetaPlane, FPlane
 from .physics.forcings import (DrySubsidenceTendency, GeostrophicForcing,
                                SubsidenceForcing, UpperSponge)
 from .physics.microphysics import SaturationAdjustment
@@ -24,6 +27,9 @@ from .physics.surface import PrescribedSurfaceFluxes
 
 F_CORIOLIS = 3.76e-5
 EXTENT = (6_400.0, 6_400.0, 3_000.0)
+#: BOMEX's site on a β-plane: f₀ = 2Ω sin φ at φ ≈ 14.9°N, β = 2Ω cos φ / R,
+#: the origin at the domain's centre
+BETA_PLANE = BetaPlane(f0=F_CORIOLIS, beta=2.21e-11, y0=0.5 * EXTENT[1])
 
 
 def subsidence_profile(z):
@@ -58,15 +64,18 @@ def u0(x, y, z):
     return torch.where(z < 700.0, -8.75 + 0.0 * z, -8.75 + (z - 700.0) * 1.8e-3)
 
 
-def bomex_model(size, *, dtype: torch.dtype, device) -> AtmosphereModel:
-    """The BOMEX model on an ``(nx, ny, nz)`` grid over the BOMEX domain."""
+def bomex_model(size, *, dtype: torch.dtype = torch.float32, device="cuda",
+                coriolis=None) -> AtmosphereModel:
+    """The BOMEX model on an ``(nx, ny, nz)`` grid over the BOMEX domain.
+    ``coriolis`` ``None`` is the f-plane."""
     grid = make_grid(size, extent=EXTENT, topology=(PERIODIC, PERIODIC, BOUNDED),
                      dtype=dtype, device=device)
     return make_model(
         grid, advection=WENO(5), potential_temperature=298.7,
         surface_pressure=101_500.0,
         microphysics=SaturationAdjustment(),
-        closure=SmagorinskyLilly(), coriolis=FPlane(f=F_CORIOLIS),
+        closure=SmagorinskyLilly(),
+        coriolis=FPlane(f=F_CORIOLIS) if coriolis is None else coriolis,
         boundary_fluxes=PrescribedSurfaceFluxes(
             theta_flux=8.0e-3, qt_flux=5.2e-5, friction_velocity=0.28),
         forcings=(

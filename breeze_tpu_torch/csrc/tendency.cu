@@ -13,9 +13,10 @@
 // Bound: arithmetic (about thirty WENO5 reconstructions and the closure per
 // point against ~17 fields of traffic).  Pass 1 writes the eddy viscosity nu
 // at centers; pass 2 reads it (z clamped = the wall mirror) and writes the
-// 3+K blended prognostics.
+// 3+K blended prognostics.  The closure's device code is smagorinsky.cuh,
+// which the closure kernel (closure.cu) shares.
 
-#include "weno.cuh"
+#include "smagorinsky.cuh"
 
 namespace {
 
@@ -31,12 +32,6 @@ struct TendArgs {
   float inv_dx, inv_dy, f_cor, prandtl, inv_prandtl, g_acc, alpha, dt, oma;
 };
 
-// Padded column: k in [-HALO, nz + HALO).
-struct Col {
-  const float* p;
-  __device__ __forceinline__ float operator()(int k) const { return __ldg(p + k + HALO); }
-};
-
 // ---- pass 1: eddy viscosity at centers -----------------------------------
 __global__ void __launch_bounds__(256) smagorinsky_nu_kernel(TendArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -46,38 +41,9 @@ __global__ void __launch_bounds__(256) smagorinsky_nu_kernel(TendArgs a) {
   const int nyp = a.ny + 2 * HALO;
   const Win U{a.u, nyp, a.nx}, V{a.v, nyp, a.nx}, W{a.w, nyp, a.nx}, TB{a.thb, nyp, a.nx};
   const Col izc{a.invdzc_e}, izf{a.invdzf_e}, cd2{a.cd2_e};
-  const float idx = a.inv_dx, idy = a.inv_dy;
-
-  auto S12 = [&](int kk, int jf, int xf) {
-    return 0.5f * ((U(kk, jf, xf) - U(kk, jf - 1, xf)) * idy
-                   + (V(kk, jf, xf) - V(kk, jf, xf - 1)) * idx);
-  };
-  auto S13 = [&](int kf, int jj, int xf) {
-    return 0.5f * ((U(kf, jj, xf) - U(kf - 1, jj, xf)) * izf(kf)
-                   + (W(kf, jj, xf) - W(kf, jj, xf - 1)) * idx);
-  };
-  auto S23 = [&](int kf, int yf, int ii) {
-    return 0.5f * ((V(kf, yf, ii) - V(kf - 1, yf, ii)) * izf(kf)
-                   + (W(kf, yf, ii) - W(kf, yf - 1, ii)) * idy);
-  };
-  const float S11 = (U(k, j, i + 1) - U(k, j, i)) * idx;
-  const float S22 = (V(k, j + 1, i) - V(k, j, i)) * idy;
-  const float S33 = (W(k + 1, j, i) - W(k, j, i)) * izc(k);
-  const float S12c = 0.25f * (S12(k, j, i) + S12(k, j + 1, i) + S12(k, j, i + 1) + S12(k, j + 1, i + 1));
-  const float S13c = 0.25f * (S13(k, j, i) + S13(k + 1, j, i) + S13(k, j, i + 1) + S13(k + 1, j, i + 1));
-  const float S23c = 0.25f * (S23(k, j, i) + S23(k, j + 1, i) + S23(k + 1, j, i) + S23(k + 1, j + 1, i));
-  const float S2 = 2.0f * (S11 * S11 + S22 * S22 + S33 * S33
-                           + 2.0f * (S12c * S12c + S13c * S13c + S23c * S23c));
-  float abs_S = sqrtf(S2);
-  if (a.buoy_corr) {
-    auto dth_f = [&](int kf) { return (TB(kf, j, i) - TB(kf - 1, j, i)) * izf(kf); };
-    // the reference's top cell copies its lower-face gradient
-    const float dth = (k == a.nz - 1) ? dth_f(k) : 0.5f * (dth_f(k) + dth_f(k + 1));
-    const float N2 = a.g_acc / fmaxf(TB(k, j, i), 1.0f) * dth;
-    const float Ri = N2 / fmaxf(S2, F32(1e-20));
-    abs_S = abs_S * sqrtf(fmaxf(0.0f, 1.0f - Ri / a.prandtl));
-  }
-  a.nu[((size_t)k * a.ny + j) * a.nx + i] = cd2(k) * abs_S;
+  a.nu[((size_t)k * a.ny + j) * a.nx + i] = smagorinsky_nu(
+      U, V, W, TB, izc, izf, cd2, k, j, i, a.nz, a.inv_dx, a.inv_dy, a.buoy_corr, a.g_acc,
+      a.prandtl);
 }
 
 // ---- pass 2: tendencies and the blend --------------------------------------
@@ -138,65 +104,8 @@ __global__ void __launch_bounds__(256) fused_tendency_kernel(TendArgs a) {
   // ---- Smagorinsky-Lilly epilogue ----------------------------------------
   if (a.has_clo) {
     const Col izc_e{a.invdzc_e}, izf_e{a.invdzf_e};
-    auto NU = [&](int kk, int jj, int ii) {   // z clamped = the wall mirror
-      kk = kk < 0 ? 0 : (kk > nz - 1 ? nz - 1 : kk);
-      return __ldg(a.nu + ((size_t)kk * ny + wrap(jj, ny)) * nx + wrap(ii, nx));
-    };
-    auto KAP = [&](int kk, int jj, int ii) { return NU(kk, jj, ii) * a.inv_prandtl; };
-    auto S11 = [&](int kk, int jj, int ii) { return (U(kk, jj, ii + 1) - U(kk, jj, ii)) * idx; };
-    auto S22 = [&](int kk, int jj, int ii) { return (V(kk, jj + 1, ii) - V(kk, jj, ii)) * idy; };
-    auto S33 = [&](int kk, int jj, int ii) { return (W(kk + 1, jj, ii) - W(kk, jj, ii)) * izc_e(kk); };
-    auto S12 = [&](int kk, int jf, int xf) {
-      return 0.5f * ((U(kk, jf, xf) - U(kk, jf - 1, xf)) * idy
-                     + (V(kk, jf, xf) - V(kk, jf, xf - 1)) * idx);
-    };
-    auto S13 = [&](int kf, int jj, int xf) {
-      return 0.5f * ((U(kf, jj, xf) - U(kf - 1, jj, xf)) * izf_e(kf)
-                     + (W(kf, jj, xf) - W(kf, jj, xf - 1)) * idx);
-    };
-    auto S23 = [&](int kf, int yf, int ii) {
-      return 0.5f * ((V(kf, yf, ii) - V(kf - 1, yf, ii)) * izf_e(kf)
-                     + (W(kf, yf, ii) - W(kf, yf - 1, ii)) * idy);
-    };
-    auto T11 = [&](int ii) { return -2.0f * (colc(k) * NU(k, j, ii)) * S11(k, j, ii); };
-    auto T22 = [&](int jj) { return -2.0f * (colc(k) * NU(k, jj, i)) * S22(k, jj, i); };
-    auto T33 = [&](int kk) { return -2.0f * (colc(kk) * NU(kk, j, i)) * S33(kk, j, i); };
-    auto T12 = [&](int yf, int xf) {
-      const float nxy = 0.25f * (NU(k, yf, xf) + NU(k, yf, xf - 1) + NU(k, yf - 1, xf) + NU(k, yf - 1, xf - 1));
-      return -2.0f * colc(k) * nxy * S12(k, yf, xf);
-    };
-    auto T13 = [&](int kf, int xf) {
-      const float nxz = 0.25f * (NU(kf, j, xf) + NU(kf, j, xf - 1) + NU(kf - 1, j, xf) + NU(kf - 1, j, xf - 1));
-      return -2.0f * colf(kf) * nxz * S13(kf, j, xf);
-    };
-    auto T23 = [&](int kf, int yf) {
-      const float nyz = 0.25f * (NU(kf, yf, i) + NU(kf, yf - 1, i) + NU(kf - 1, yf, i) + NU(kf - 1, yf - 1, i));
-      return -2.0f * colf(kf) * nyz * S23(kf, yf, i);
-    };
-    const float ize = izc_e(k), ife = izf_e(k);
-    g[0] = g[0] + -((T11(i) - T11(i - 1)) * idx + (T12(j + 1, i) - T12(j, i)) * idy
-                    + (T13(k + 1, i) - T13(k, i)) * ize);
-    g[1] = g[1] + -((T12(j, i + 1) - T12(j, i)) * idx + (T22(j) - T22(j - 1)) * idy
-                    + (T23(k + 1, j) - T23(k, j)) * ize);
-    g[2] = g[2] + -((T13(k, i + 1) - T13(k, i)) * idx + (T23(k, j + 1) - T23(k, j)) * idy
-                    + (T33(k) - T33(k - 1)) * ife);
-    for (int s = 0; s < a.K; ++s) {
-      const Win C{scal[s], nyp, nx};
-      auto Fz = [&](int kf) {
-        return colf(kf) * 0.5f * (KAP(kf - 1, j, i) + KAP(kf, j, i))
-               * (C(kf, j, i) - C(kf - 1, j, i)) * izf_e(kf);
-      };
-      auto Fy = [&](int yf) {
-        return colc(k) * 0.5f * (KAP(k, yf - 1, i) + KAP(k, yf, i))
-               * (C(k, yf, i) - C(k, yf - 1, i)) * idy;
-      };
-      auto Fx = [&](int xf) {
-        return colc(k) * 0.5f * (KAP(k, j, xf) + KAP(k, j, xf - 1))
-               * (C(k, j, xf) - C(k, j, xf - 1)) * idx;
-      };
-      g[3 + s] = g[3 + s] + ((Fx(i + 1) - Fx(i)) * idx + (Fy(j + 1) - Fy(j)) * idy
-                             + (Fz(k + 1) - Fz(k)) * ize);
-    }
+    smagorinsky_tendencies(U, V, W, scal, a.K, a.nu, colc, colf, izc_e, izf_e, k, j, i,
+                           nz, ny, nx, idx, idy, a.inv_prandtl, g);
   }
 
   // ---- forcing columns and the SSP-RK3 blend ------------------------------

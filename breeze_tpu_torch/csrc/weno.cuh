@@ -32,6 +32,12 @@ struct Win {
   }
 };
 
+// Padded column: k in [-HALO, nz + HALO).
+struct Col {
+  const float* p;
+  __device__ __forceinline__ float operator()(int k) const { return __ldg(p + k + HALO); }
+};
+
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
 // WENO5-JS with common-denominator weights; NORM max-normalizes them with a

@@ -96,6 +96,9 @@ class Grid:
     def y_c(self) -> np.ndarray:
         return self.y0 + (np.arange(self.ny) + 0.5) * self.dy
 
+    def y_f(self) -> np.ndarray:
+        return self.y0 + np.arange(self.ny) * self.dy
+
     def xyz_c(self):
         """Cell-center coordinates broadcastable to ``(nz, ny, nx)``."""
         kw = dict(dtype=self.dtype, device=self.device)

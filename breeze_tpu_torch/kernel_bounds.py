@@ -15,21 +15,11 @@ anywhere.
 from __future__ import annotations
 
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
-BOMEX, BUBBLE = (256, 256, 256), (256, 256, 128)
+BUBBLE = (256, 256, 128)
 
 #: (row in PERF.md, kernel, path and shape, full-field inputs, outputs,
 #: float32 operations per output point)
 KERNELS = (
-    (4, "momentum.py:309 momentum_div_pallas_cols",
-     "anelastic 256^3, outside the fused envelope", BOMEX, 3, 3,
-     684),   # momentum_div's 675 and the momenta formed from ρᵣ columns, 9
-    (6, "closure.py:298 closure_tendencies_pallas",
-     "anelastic 256^3 BOMEX, split closure", BOMEX, 6, 5,
-     390),   # strain, ν, the θᵥ correction and five flux divergences
-    (7, "projection.py:86 divergence_pallas",
-     "anelastic 256^3 BOMEX, opt-in projection", BOMEX, 3, 1, 8),
-    (8, "projection.py:181 gradient_correct_pallas",
-     "anelastic 256^3 BOMEX, opt-in projection", BOMEX, 4, 3, 12),
     (10, "acoustic.py:182 _run_k1 (one substep)",
      "compressible 256x256x128 bubble, split pair", BUBBLE, 12, 4,
      46),    # A 12, B 34

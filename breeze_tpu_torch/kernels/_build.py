@@ -89,7 +89,8 @@ def build_log() -> str:
 #: The entry points that take (pointers, ints, floats, stream) arrays.
 ARRAY_ENTRY_POINTS = ("breeze_fused_tendency", "breeze_momentum_div",
                       "breeze_div_rho_u_c", "breeze_acoustic_column",
-                      "breeze_acoustic_damp")
+                      "breeze_acoustic_damp", "breeze_closure_tendencies",
+                      "breeze_divergence", "breeze_gradient_correct")
 
 
 def library() -> ctypes.CDLL:

@@ -1,25 +1,30 @@
 """WENO5 momentum flux divergences: the momentum kernel.
 
 Replaces ``breeze_tpu/pallas_kernels/momentum.py::momentum_div_pallas`` (the
-``pl.pallas_call`` in ``_run``, body ``momentum_divs``).  It computes the
-nine WENO5 terms of ∇·(ρU⊗u), the advecting momenta interpolated to each
-interface and the advected velocity reconstructed there upwind of them,
-with un-normalized weights (velocities are bounded, see ``weno.weno5``):
+``pl.pallas_call`` in ``_run``, body ``momentum_divs``) and, as
+:func:`momentum_div_cols`, ``momentum_div_pallas_cols`` (the
+``pl.pallas_call`` in ``_run_cols``).  It computes the nine WENO5 terms of
+∇·(ρU⊗u), the advecting momenta interpolated to each interface and the
+advected velocity reconstructed there upwind of them, with un-normalized
+weights (velocities are bounded, see ``weno.weno5``):
 
     du at (zc, yc, xf),  dv at (zc, yf, xc),  dw at (zf, yc, xc).
 
 Inputs are ρu, ρv, ρw and u, v, w as windows padded by ``H`` in z and y
 (``fields.pad``), and 1/Δz at centers and faces, so stretched z works.
-Row 0 of ``dw`` reads below-wall pad data, which the wall condition
-overwrites.
+:func:`momentum_div_cols` takes the anelastic form ρu = ρᵣ(z)·u: the three
+velocity windows and the reference density at centers and faces as
+``H``-padded columns, the momenta formed inside the kernel.  Row 0 of
+``dw`` reads below-wall pad data, which the wall condition overwrites.
 
 On the H100 device memory and arithmetic bound it about equally
 (``csrc/momentum.cu`` has the numbers).  The design: one thread per output
 point with x fastest, like the fused tendency kernel, whose momentum terms
 are the same code (``momentum_divs`` in ``csrc/weno.cuh``).
 
-``momentum_div`` runs :func:`momentum_div_plain` for CPU tensors and the
-CUDA kernel for CUDA tensors.
+``momentum_div`` and ``momentum_div_cols`` run their plain versions for
+CPU tensors and the CUDA kernel (``csrc/momentum.cu``, one instance each)
+for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -29,8 +34,11 @@ import torch
 from . import _build
 from .weno import H, sl, weno_sel, xs
 
-#: Times the CUDA kernel was launched (the plain version does not count).
+#: Times each CUDA instance was launched (the plain versions do not count):
+#: ``launches`` for :func:`momentum_div`, ``cols_launches`` for
+#: :func:`momentum_div_cols`.
 launches = 0
+cols_launches = 0
 
 
 def momentum_div_plain(ru, rv, rw, u, v, w, invdzc, invdzf,
@@ -110,7 +118,50 @@ def momentum_div(ru, rv, rw, u, v, w, invdzc, invdzf,
     if nx < 4 or ny < 3 or nz < 4:
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
     outs = [torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device) for _ in range(3)]
-    _build.launch("breeze_momentum_div", [ru, rv, rw, u, v, w, invdzc, invdzf, *outs],
-                  [nz, ny, nx], [inv_dx, inv_dy], u)
+    _build.launch("breeze_momentum_div",
+                  [ru, rv, rw, u, v, w, invdzc, invdzf, None, None, *outs],
+                  [nz, ny, nx, 0], [inv_dx, inv_dy], u)
     launches += 1
+    return tuple(outs)
+
+
+def momentum_div_cols_plain(u, v, w, colc, colf, invdzc, invdzf,
+                            inv_dx: float, inv_dy: float):
+    """The column instance on whole arrays (any float dtype).  Arguments as
+    :func:`momentum_div_cols`."""
+    colc, colf = colc[:, None, None], colf[:, None, None]
+    return momentum_div_plain(u * colc, v * colc, w * colf, u, v, w, invdzc, invdzf,
+                              inv_dx, inv_dy)
+
+
+def momentum_div_cols(u, v, w, colc, colf, invdzc, invdzf,
+                      inv_dx: float, inv_dy: float):
+    """``(du, dv, dw)``, the divergences ∇·(ρU⊗u) with ρu = ρᵣ(z)·u.
+
+    - ``u``, ``v``, ``w``: ``(nz+2H, ny+2H, nx)`` windows padded in z and y;
+    - ``colc``, ``colf``: the reference density at centers and faces,
+      ``(nz+2H,)``, padded as ``model.TendencyColumns`` pads them;
+    - ``invdzc``, ``invdzf``: 1/Δz at centers and at the stored faces,
+      ``(nz,)``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    global cols_launches
+    if u.device.type == "cpu":
+        return momentum_div_cols_plain(u, v, w, colc, colf, invdzc, invdzf, inv_dx, inv_dy)
+    nzp, nyp, nx = u.shape
+    nz, ny = nzp - 2 * H, nyp - 2 * H
+    for name, t in (("u", u), ("v", v), ("w", w)):
+        _build.require_cuda(name, t, u.shape)
+    for name, t in (("colc", colc), ("colf", colf)):
+        _build.require_cuda(name, t, (nzp,))
+    for name, t in (("invdzc", invdzc), ("invdzf", invdzf)):
+        _build.require_cuda(name, t, (nz,))
+    if nx < 4 or ny < 3 or nz < 4:
+        raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
+    outs = [torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device) for _ in range(3)]
+    _build.launch("breeze_momentum_div",
+                  [None, None, None, u, v, w, invdzc, invdzf, colc, colf, *outs],
+                  [nz, ny, nx, 1], [inv_dx, inv_dy], u)
+    cols_launches += 1
     return tuple(outs)

@@ -45,6 +45,7 @@ import dataclasses
 import torch
 
 from . import _build
+from .closure import closure_tendencies_plain
 from .momentum import momentum_div_plain
 from .weno import H, sl as _sl, weno_sel as _weno_sel, xs as _xs
 
@@ -123,7 +124,7 @@ def fused_tendency_plain(cfg: TendencyConfig, cols: TendencyColumns,
 
     cg = [None] * 5
     if cfg.closure is not None:
-        cg = _smagorinsky_plain(cfg, cols, u, v, w, thb, scalars)
+        cg = closure_tendencies_plain(cfg, cols, u, v, w, thb, scalars) + [None] * 2
         gu, gv, gw = gu + cg[0], gv + cg[1], gw + cg[2]
 
     outs = []
@@ -157,116 +158,6 @@ def fused_tendency_plain(cfg: TendencyConfig, cols: TendencyColumns,
             g = g - col(fdamp[n]) * cs * colc[H: H + nz]
         outs.append((1.0 - alpha) * prev[n] + alpha * (cur[n] + dt * g))
     return outs
-
-
-def _smagorinsky_plain(cfg, cols, u, v, w, thb, scalars):
-    """Smagorinsky-Lilly tendencies ``[G_u, G_v, G_w, G_θ, G_qt]`` on whole
-    arrays (the closure epilogue; ``breeze_tpu``'s ``_smag_block`` with the
-    whole domain as one block)."""
-    prandtl, buoy_corr, g_acc = cfg.closure
-    nz = u.shape[0] - 2 * H
-    ny = u.shape[1] - 2 * H
-    inv_dx, inv_dy = cfg.inv_dx, cfg.inv_dy
-    xs, sl = _xs, _sl
-
-    def colw(c, z0, nzr):
-        return c[H + z0: H + z0 + nzr, None, None]
-
-    invdzc_e, invdzf_e, cd2_e = cols.invdzc_e, cols.invdzf_e, cols.cd2_e
-    # strains on the centers z -1..nz, y -1..ny (everything ν needs)
-    EZ0, EZN, EY0, EYN = -1, nz + 2, -1, ny + 2
-    uE1 = sl(u, EZ0, EZN, EY0, EYN)
-    S11 = (xs(uE1, 1) - uE1) * inv_dx
-    vE = sl(v, EZ0, EZN, EY0, EYN + 1)
-    S22 = (vE[:, 1:] - vE[:, :-1]) * inv_dy
-    wE = sl(w, EZ0, EZN + 1, EY0, EYN)
-    S33 = (wE[1:] - wE[:-1]) * colw(invdzc_e, EZ0, EZN)
-    u12 = sl(u, EZ0, EZN, EY0 - 1, EYN + 2)
-    dy_u = (u12[:, 1:] - u12[:, :-1]) * inv_dy
-    v12 = sl(v, EZ0, EZN, EY0, EYN + 1)
-    S12 = 0.5 * (dy_u + (v12 - xs(v12, -1)) * inv_dx)
-    u13 = sl(u, EZ0 - 1, EZN + 2, EY0, EYN)
-    dz_u = (u13[1:] - u13[:-1]) * colw(invdzf_e, EZ0, EZN + 1)
-    w13 = sl(w, EZ0, EZN + 1, EY0, EYN)
-    S13 = 0.5 * (dz_u + (w13 - xs(w13, -1)) * inv_dx)
-    v23 = sl(v, EZ0 - 1, EZN + 2, EY0, EYN + 1)
-    dz_v = (v23[1:] - v23[:-1]) * colw(invdzf_e, EZ0, EZN + 1)
-    w23 = sl(w, EZ0, EZN + 1, EY0 - 1, EYN + 2)
-    S23 = 0.5 * (dz_v + (w23[:, 1:] - w23[:, :-1]) * inv_dy)
-
-    S12c = 0.25 * (S12[:, :-1] + S12[:, 1:] + xs(S12[:, :-1], 1) + xs(S12[:, 1:], 1))
-    S13c = 0.25 * (S13[:-1] + S13[1:] + xs(S13[:-1], 1) + xs(S13[1:], 1))
-    S23c = 0.25 * (S23[:-1, :-1] + S23[:-1, 1:] + S23[1:, :-1] + S23[1:, 1:])
-    S2 = 2.0 * (S11 * S11 + S22 * S22 + S33 * S33
-                + 2.0 * (S12c * S12c + S13c * S13c + S23c * S23c))
-    abs_S = torch.sqrt(S2)
-    kz = torch.arange(-1, nz + 1, device=u.device)[:, None, None]
-    if buoy_corr:
-        tE = sl(thb, EZ0 - 1, EZN + 2, EY0, EYN)
-        dth_f = (tE[1:] - tE[:-1]) * colw(invdzf_e, EZ0, EZN + 1)
-        dth = 0.5 * (dth_f[:-1] + dth_f[1:])
-        # the reference's top cell copies its lower-face gradient
-        dth = torch.where(kz == nz - 1, dth_f[:-1], dth)
-        N2 = g_acc / torch.clamp(sl(thb, EZ0, EZN, EY0, EYN), min=1.0) * dth
-        Ri = N2 / torch.clamp(S2, min=1e-20)
-        abs_S = abs_S * torch.sqrt(torch.clamp(1.0 - Ri / prandtl, min=0.0))
-    nu = colw(cd2_e, EZ0, EZN) * abs_S
-    # z-wall mirror of ν: row -1 ← row 0, row nz ← row nz-1
-    nu = torch.where(kz < 0, torch.roll(nu, -1, 0), nu)
-    nu = torch.where(kz > nz - 1, torch.roll(nu, 1, 0), nu)
-
-    def nuc(z0, nzr, y0, nyr):
-        return nu[1 + z0: 1 + z0 + nzr, 1 + y0: 1 + y0 + nyr]
-
-    rc = lambda z0, nzr: colw(cols.colc, z0, nzr)
-    rf = lambda z0, nzr: colw(cols.colf, z0, nzr)
-
-    rho_nu_c = rc(0, nz) * nuc(0, nz, -1, ny + 2)
-    T11 = -2.0 * rho_nu_c[:, 1:-1] * S11[1:-1, 1:-1]
-    T22 = -2.0 * rho_nu_c * S22[1:-1]
-    T33 = -2.0 * (rc(-1, nz + 2) * nuc(-1, nz + 2, 0, ny)) * S33[:, 1:-1]
-    nu12 = nuc(0, nz, -1, ny + 2)
-    nu_xy = 0.25 * (nu12[:, 1:] + xs(nu12[:, 1:], -1)
-                    + nu12[:, :-1] + xs(nu12[:, :-1], -1))
-    T12 = -2.0 * rc(0, nz) * nu_xy * S12[1:-1, 1:-1]
-    nu13 = nuc(-1, nz + 2, 0, ny)
-    nu_xz = 0.25 * (nu13[1:] + xs(nu13[1:], -1) + nu13[:-1] + xs(nu13[:-1], -1))
-    T13 = -2.0 * rf(0, nz + 1) * nu_xz * S13[1:-1, 1:-1]
-    nu23 = nuc(-1, nz + 2, -1, ny + 2)
-    nu_yz = 0.25 * (nu23[1:, 1:] + nu23[1:, :-1] + nu23[:-1, 1:] + nu23[:-1, :-1])
-    T23 = -2.0 * rf(0, nz + 1) * nu_yz * S23[1:-1, 1:-1]
-
-    invdzc_b = colw(invdzc_e, 0, nz)
-    invdzf_b = colw(invdzf_e, 0, nz)
-    gu = -((T11 - xs(T11, -1)) * inv_dx
-           + (T12[:, 1:] - T12[:, :-1]) * inv_dy
-           + (T13[1:] - T13[:-1]) * invdzc_b)
-    T12v = T12[:, :-1]
-    gv = -((xs(T12v, 1) - T12v) * inv_dx
-           + (T22[:, 1:-1] - T22[:, :-2]) * inv_dy
-           + (T23[1:, :-1] - T23[:-1, :-1]) * invdzc_b)
-    T13w = T13[:-1]
-    gw = -((xs(T13w, 1) - T13w) * inv_dx
-           + (T23[:-1, 1:] - T23[:-1, :-1]) * inv_dy
-           + (T33[1:-1] - T33[:-2]) * invdzf_b)
-
-    kap = nu * (1.0 / prandtl)
-
-    def scalar_diffusion(c):
-        cz = sl(c, -1, nz + 2, 0, ny)
-        Fz = (rf(0, nz + 1) * 0.5 * (kap[:-1, 1:-1] + kap[1:, 1:-1])
-              * (cz[1:] - cz[:-1]) * colw(invdzf_e, 0, nz + 1))
-        cy = sl(c, 0, nz, -1, ny + 2)
-        Fy = (rc(0, nz) * 0.5 * (kap[1:-1, :-1] + kap[1:-1, 1:])
-              * (cy[:, 1:] - cy[:, :-1]) * inv_dy)
-        cxs = sl(c, 0, nz, 0, ny)
-        kx = kap[1:-1, 1:-1]
-        Fx = rc(0, nz) * 0.5 * (kx + xs(kx, -1)) * (cxs - xs(cxs, -1)) * inv_dx
-        return ((xs(Fx, 1) - Fx) * inv_dx + (Fy[:, 1:] - Fy[:, :-1]) * inv_dy
-                + (Fz[1:] - Fz[:-1]) * invdzc_b)
-
-    out = [gu, gv, gw] + [scalar_diffusion(c) for c in scalars]
-    return out + [None] * (5 - len(out))
 
 
 # --------------------------------------------------------------------------

@@ -1,17 +1,28 @@
 """The anelastic model: state, configuration, diagnostics, stage update,
 pressure projection.
 
-Port of ``breeze_tpu/model.py`` on the path the BOMEX case runs: the fused
-tendency branch of ``compute_tendencies`` with its substep epilogue, plus
-the surface-flux extras added as +αΔt·G on top of the kernel's output.
-The model holds its tensors (reference columns, Poisson factors, the
-tendency kernel's columns), all on the grid's device.
+Port of ``breeze_tpu/model.py`` on the anelastic paths the BOMEX case runs.
+``compute_tendencies`` takes one of two routes, as the reference selects
+them (``model.py:565-629``):
+
+- **fused**, when the fused tendency kernel's envelope takes the model
+  (Coriolis ``None`` or :class:`FPlane`): the tendency kernel emits the
+  stage-blended prognostics, and the surface-flux extras are added as
+  +αΔt·G;
+- **unfused** otherwise (a :class:`BetaPlane`): the column-momentum, scalar
+  and closure kernels, the whole-field Coriolis and buoyancy, the surface
+  fluxes and the forcings' columns build G, and ``stage_update`` blends.
+
+``pressure_projection`` runs the projection kernels around the Poisson
+solve.  The model holds its tensors (reference columns, Poisson factors,
+the kernels' columns), all on the grid's device.
 
 Envelope (raises outside it): periodic x and y, bounded z, WENO5 (not
-bounds-preserving) for momentum and scalars, Coriolis ``None`` or
-:class:`FPlane`, closure ``None`` or :class:`SmagorinskyLilly`,
-microphysics ``None`` or :class:`SaturationAdjustment`, prescribed surface
-fluxes, column-linear forcings.
+bounds-preserving) for momentum and scalars, Coriolis ``None``,
+:class:`FPlane` or :class:`BetaPlane`, closure ``None`` or
+:class:`SmagorinskyLilly`, microphysics ``None`` or
+:class:`SaturationAdjustment`, prescribed surface fluxes, the BOMEX
+forcings.
 """
 
 from __future__ import annotations
@@ -26,10 +37,14 @@ from . import fields as fl
 from .advection import WENO
 from .dynamics.poisson import AnelasticPoissonSolver, build_anelastic_poisson_solver
 from .grid import Grid, Topology
+from .kernels import projection as kproj
+from .kernels.advection import div_rho_u_c
+from .kernels.closure import closure_tendencies as closure_kernel
+from .kernels.momentum import momentum_div_cols
 from .kernels.tendency import H, TendencyColumns, TendencyConfig, fused_tendency
 from .ops import StencilOps
 from .physics.closures import SmagorinskyLilly
-from .physics.coriolis import FPlane
+from .physics.coriolis import BetaPlane, FPlane, coriolis_terms
 from .physics.microphysics import SaturationAdjustment, saturation_adjust
 from .physics.surface import apply_boundary_flux_tendencies
 from .thermo.constants import MoistureMassFractions, ThermodynamicConstants
@@ -83,6 +98,7 @@ class AtmosphereModel:
     p_standard: float
     tendency_config: TendencyConfig
     tendency_columns: TendencyColumns
+    fused: bool                      # the fused tendency kernel's route
 
     @property
     def has_moisture(self) -> bool:
@@ -117,15 +133,44 @@ def _tendency_columns(grid: Grid, ref: ReferenceState, closure) -> TendencyColum
     return TendencyColumns(**cols)
 
 
+def _weno5(scheme, bounds_ok: bool = False) -> bool:
+    return (isinstance(scheme, WENO) and scheme.order == 5
+            and (bounds_ok or not scheme.bounds_preserving))
+
+
+def _periodic_xy(grid) -> bool:
+    return grid.topologies() == (Topology.BOUNDED, Topology.PERIODIC, Topology.PERIODIC)
+
+
+def fused_supported(grid, momentum_scheme, scalar_scheme, coriolis) -> bool:
+    """The fused tendency kernel's envelope (the counterpart of
+    ``breeze_tpu``'s ``tendency.supported`` without its TPU block sizes)."""
+    return (_weno5(momentum_scheme) and _weno5(scalar_scheme, bounds_ok=True)
+            and (coriolis is None or isinstance(coriolis, FPlane)) and _periodic_xy(grid))
+
+
+def momentum_supported(grid, scheme) -> bool:
+    """The column-momentum kernel's envelope (``momentum.supported``): no
+    Coriolis condition, so a β-plane lands here."""
+    return _weno5(scheme) and _periodic_xy(grid)
+
+
+def scalar_supported(grid, scheme) -> bool:
+    """The scalar kernel's envelope (``advection.supported``)."""
+    return _weno5(scheme, bounds_ok=True) and _periodic_xy(grid)
+
+
 def _check_envelope(grid, advection, microphysics, coriolis, closure):
     problems = []
-    if grid.topologies() != (Topology.BOUNDED, Topology.PERIODIC, Topology.PERIODIC):
+    if not _periodic_xy(grid):
         problems.append("x and y must be periodic and z bounded")
-    if not (isinstance(advection, WENO) and advection.order == 5
-            and not advection.bounds_preserving):
+    if not fused_supported(grid, advection, advection, coriolis) and not (
+            momentum_supported(grid, advection) and scalar_supported(grid, advection)):
+        # the whole-field momentum and scalar advection of other schemes
+        # are not ported
         problems.append("advection must be WENO(5) without bounds preservation")
-    if coriolis is not None and not isinstance(coriolis, FPlane):
-        problems.append("Coriolis must be None or FPlane")
+    if coriolis is not None and not isinstance(coriolis, (FPlane, BetaPlane)):
+        problems.append("Coriolis must be None, FPlane or BetaPlane")
     if closure is not None and not isinstance(closure, SmagorinskyLilly):
         problems.append("the closure must be None or SmagorinskyLilly")
     if microphysics is not None and not isinstance(microphysics, SaturationAdjustment):
@@ -142,8 +187,8 @@ def make_model(grid: Grid, advection: WENO,
                potential_temperature: float = 288.0,
                p_standard: float = 1.0e5) -> AtmosphereModel:
     """Model factory: builds the reference state, the Poisson factors and
-    the tendency kernel's columns on the grid's device.  ``advection``
-    serves momentum and scalars alike."""
+    the kernels' columns on the grid's device.  ``advection`` serves
+    momentum and scalars alike."""
     _check_envelope(grid, advection, microphysics, coriolis, closure)
     constants = constants or ThermodynamicConstants()
     if reference is None:
@@ -153,7 +198,7 @@ def make_model(grid: Grid, advection: WENO,
     g_acc = constants.gravitational_acceleration
     cfg = TendencyConfig(
         inv_dx=float(1.0 / grid.dx), inv_dy=float(1.0 / grid.dy),
-        f_cor=None if coriolis is None else float(coriolis.f),
+        f_cor=float(coriolis.f) if isinstance(coriolis, FPlane) else None,
         closure=None if closure is None else (
             float(closure.prandtl), bool(closure.buoyancy_correction), float(g_acc)))
     return AtmosphereModel(
@@ -163,7 +208,8 @@ def make_model(grid: Grid, advection: WENO,
         coriolis=coriolis, closure=closure, forcings=tuple(forcings),
         boundary_fluxes=boundary_fluxes, p_standard=p_standard,
         tendency_config=cfg,
-        tendency_columns=_tendency_columns(grid, reference, closure))
+        tendency_columns=_tendency_columns(grid, reference, closure),
+        fused=fused_supported(grid, advection, advection, coriolis))
 
 
 def initial_state(model: AtmosphereModel, u=None, v=None, w=None, theta=None,
@@ -245,12 +291,16 @@ def _forcing_columns(model: AtmosphereModel, state: State, aux: Aux):
             [None if d is None else flat(d) for d in damps])
 
 
-def tendency_kernel_args(model: AtmosphereModel, state: State, aux: Aux,
-                         dt: float, state0: State, alpha: float) -> tuple:
-    """The arguments of :func:`~.kernels.tendency.fused_tendency` for one
-    stage: the padded windows, the forcing columns and the prognostics."""
-    g = model.grid
-    pz = lambda a, loc: fl.pad(a, g, loc, halo=H, axes=(0, 1))
+def _pad_zy(model: AtmosphereModel, a: torch.Tensor, loc) -> torch.Tensor:
+    """A kernel's window: ``a`` padded by H rows in z and y."""
+    return fl.pad(a, model.grid, loc, halo=H, axes=(0, 1))
+
+
+def _windows(model: AtmosphereModel, aux: Aux) -> tuple:
+    """The kernels' velocity and scalar windows ``(u, v, w, scalars, thb)``:
+    ``scalars`` θ and (moist) qᵗ, ``thb`` θᵥ for Lilly's correction when
+    the model is moist, θ's window otherwise."""
+    pz = lambda a, loc: _pad_zy(model, a, loc)
     scalars = [pz(aux.theta, fl.CCC)]
     if model.has_moisture:
         scalars.append(pz(aux.qt, fl.CCC))
@@ -261,50 +311,106 @@ def tendency_kernel_args(model: AtmosphereModel, state: State, aux: Aux,
         delta_rv = c.Rv / c.Rd - 1.0
         thb = pz(aux.theta * (1.0 + delta_rv * aux.q.vapor - aux.q.liquid
                               - aux.q.ice), fl.CCC)
+    return pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC), scalars, thb
+
+
+def tendency_kernel_args(model: AtmosphereModel, state: State, aux: Aux,
+                         dt: float, state0: State, alpha: float) -> tuple:
+    """The arguments of :func:`~.kernels.tendency.fused_tendency` for one
+    stage: the padded windows, the forcing columns and the prognostics."""
+    u, v, w, scalars, thb = _windows(model, aux)
     fadd, fdamp = _forcing_columns(model, state, aux)
     names = _prognostic_names(model)
-    return (model.tendency_config, model.tendency_columns,
-            pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC),
-            scalars, pz(aux.buoyancy_force, fl.CCC), thb, fadd, fdamp,
+    return (model.tendency_config, model.tendency_columns, u, v, w, scalars,
+            _pad_zy(model, aux.buoyancy_force, fl.CCC), thb, fadd, fdamp,
             [getattr(state, n) for n in names],
             [getattr(state0, n) for n in names], alpha, dt)
 
 
 def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux,
-                       dt: float, state0: State, alpha: float) -> State:
-    """The fused branch of ``breeze_tpu``'s ``compute_tendencies``: the
-    tendency kernel emits the blended prognostics (1−α)s⁰ + α(s + Δt·G)
-    (advection, Coriolis, buoyancy, closure and forcings in G), and the
-    surface-flux tendencies are added on top as +αΔt·G."""
-    outs = fused_tendency(*tendency_kernel_args(model, state, aux, dt, state0, alpha))
-    new = dict(zip(_prognostic_names(model), outs))
+                       dt: float, state0: State, alpha: float) -> tuple[State, bool]:
+    """``(result, blended)``.  On the fused route ``result`` is the blended
+    prognostics (1−α)s⁰ + α(s + Δt·G), with the surface-flux tendencies
+    added on top as +αΔt·G, and ``blended`` is true; on the unfused route
+    ``result`` is the tendency G and ``stage_update`` blends."""
+    if not model.fused:
+        return _unfused_tendencies(model, state, aux), False
+    args = tendency_kernel_args(model, state, aux, dt, state0, alpha)
+    new = dict(zip(_prognostic_names(model), fused_tendency(*args)))
     if model.boundary_fluxes is not None:
         apply_boundary_flux_tendencies(model, aux, new, alpha * dt)
-    return state.replace(**new)
+    return state.replace(**new), True
+
+
+def _unfused_tendencies(model: AtmosphereModel, state: State, aux: Aux) -> State:
+    """G outside the fused tendency kernel (``breeze_tpu``'s unfused branch,
+    ``model.py:745-819``, and the closure, surface fluxes and forcings after
+    it): the column-momentum kernel, the whole-field Coriolis and buoyancy,
+    θ and qᵗ through the scalar kernel against the broadcast ρᵣ window, the
+    closure kernel, the surface fluxes and the forcings' columns."""
+    g = model.grid
+    cfg, cols = model.tendency_config, model.tendency_columns
+    so = StencilOps(g, halo=1)
+    p1 = lambda a, loc: fl.pad(a, g, loc, halo=1)
+    pzu, pzv, pzw, scalars, thb = _windows(model, aux)
+    adv_u, adv_v, adv_w = momentum_div_cols(pzu, pzv, pzw, cols.colc, cols.colf,
+                                            cols.invdzc, cols.invdzf, cfg.inv_dx, cfg.inv_dy)
+    # ρu = ρᵣ(z)·u on halo-1 pads for the Coriolis terms
+    ref = model.reference
+    rho_c_pad = _pad_center_column(ref.rho_c, 1)[:, None, None]
+    rho_f_pad = _padded_face_column(ref.rho_f, g.nz, 1)[:, None, None]
+    u_pad, v_pad, w_pad = p1(aux.u, fl.CCF), p1(aux.v, fl.CFC), p1(aux.w, fl.FCC)
+    cor_x, cor_y, cor_z = coriolis_terms(model.coriolis, so, u_pad * rho_c_pad,
+                                         v_pad * rho_c_pad, w_pad * rho_f_pad, g)
+    G = {"rho_u": -adv_u - cor_x, "rho_v": -adv_v - cor_y,
+         # buoyancy interpolated center → z-face
+         "rho_w": -adv_w - cor_z + so.iz_cf(p1(aux.buoyancy_force, fl.CCC))}
+
+    # θ and qᵗ advected as specific quantities against the broadcast ρᵣ
+    rho_r = _pad_zy(model, ref.rho_col.expand(g.shape).contiguous(), fl.CCC)
+    names = _prognostic_names(model)
+    for name, c in zip(names[3:], scalars):
+        G[name] = div_rho_u_c(c, pzu, pzv, pzw, rho_r, cols.invdzc, cfg.inv_dx, cfg.inv_dy)
+
+    if model.closure is not None:
+        for name, gc in zip(names, closure_kernel(cfg, cols, pzu, pzv, pzw, thb, scalars)):
+            G[name] = G[name] + gc
+    if model.boundary_fluxes is not None:
+        apply_boundary_flux_tendencies(model, aux, G, 1.0)
+    # the forcings: G += add(z) − damp(z)·state
+    col = lambda c: c[:, None, None]
+    for name, add, damp in zip(names, *_forcing_columns(model, state, aux)):
+        if add is not None:
+            G[name] = G[name] + col(add)
+        if damp is not None:
+            G[name] = G[name] - col(damp) * getattr(state, name)
+    return State(**{"rho_qt": None, **G})
 
 
 def stage_update(model: AtmosphereModel, state: State, state0: State, dt: float,
                  alpha: float, aux: Aux | None = None) -> State:
-    """One SSP-RK3 stage blend (before the projection)."""
+    """One SSP-RK3 stage blend (before the projection): every prognostic at
+    (1−α)s⁰ + α(s + Δt·G), inside the tendency kernel on the fused route,
+    here otherwise."""
     if aux is None:
         aux = diagnose(model, state)
-    return compute_tendencies(model, state, aux, dt, state0, alpha)
+    res, blended = compute_tendencies(model, state, aux, dt, state0, alpha)
+    if blended:
+        return res
+    blend = lambda s, s0, gg: (1.0 - alpha) * s0 + alpha * (s + dt * gg)
+    return state.replace(**{n: blend(getattr(state, n), getattr(state0, n), getattr(res, n))
+                            for n in _prognostic_names(model)})
 
 
 def pressure_projection(model: AtmosphereModel, rho_u, rho_v, rho_w, dt: float):
     """Project the momenta onto ∇·(ρᵣu) = 0: solve ∇·(ρᵣ∇φ) = ∇·(ρũ)/Δt,
-    then ρu ← ρu − Δt ρᵣ ∇φ.  Returns ``(rho_u, rho_v, rho_w, phi)``."""
+    then ρu ← ρu − Δt ρᵣ ∇φ with ρᵣ at each component's location.  The
+    divergence and the correction (which pins the bottom face of ρw) are
+    the projection kernels.  Returns ``(rho_u, rho_v, rho_w, phi)``."""
     g = model.grid
-    so = StencilOps(g, halo=1)
+    cfg, cols, ref = model.tendency_config, model.tendency_columns, model.reference
     rho_u, rho_v, rho_w = fl.enforce_wall_normals(g, rho_u, rho_v, rho_w)
-    div = so.div_c(fl.pad(rho_u, g, fl.CCF, halo=1),
-                   fl.pad(rho_v, g, fl.CFC, halo=1),
-                   fl.pad(rho_w, g, fl.FCC, halo=1))
+    div = kproj.divergence(rho_u, rho_v, rho_w, cols.invdzc, cfg.inv_dx, cfg.inv_dy)
     phi = model.solver.solve(div, dt)
-    phi_pad = fl.pad(phi, g, fl.CCC, halo=1)
-    rho_c = model.reference.rho_col
-    rho_u = rho_u - dt * rho_c * so.dx_cf(phi_pad)
-    rho_v = rho_v - dt * rho_c * so.dy_cf(phi_pad)
-    rho_w = rho_w - dt * model.reference.rho_f_col * so.dz_cf(phi_pad)
-    rho_u, rho_v, rho_w = fl.enforce_wall_normals(g, rho_u, rho_v, rho_w)
-    return rho_u, rho_v, rho_w, phi
+    return (*kproj.gradient_correct(phi, rho_u, rho_v, rho_w, ref.rho_c, ref.rho_f[: g.nz],
+                                    cols.invdzf, cfg.inv_dx, cfg.inv_dy, dt), phi)

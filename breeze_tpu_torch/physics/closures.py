@@ -2,7 +2,8 @@
 
 Port of ``breeze_tpu/physics/closures.py::SmagorinskyLilly`` (the config
 only).  The stress and diffusive-flux divergences are the epilogue of the
-fused tendency kernel (``kernels/tendency.py``).
+fused tendency kernel (``kernels/tendency.py``) and, outside it, the
+closure kernel (``kernels/closure.py``).
 """
 
 from __future__ import annotations

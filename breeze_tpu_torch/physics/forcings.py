@@ -4,7 +4,8 @@ Port of the BOMEX forcings of ``breeze_tpu/physics/forcings.py``.  Each
 forcing exposes ``column_parts(model, state, aux)``: a dict from prognostic
 name to ``(add, damp)`` columns ``(nz, 1, 1)`` (or ``None``), meaning
 ``G += add(z) − damp(z)·field``.  The fused tendency kernel applies them in
-its epilogue, so the port needs no separate full-field forcing pass.
+its epilogue; outside it the model adds them to G
+(``model._unfused_tendencies``).
 """
 
 from __future__ import annotations

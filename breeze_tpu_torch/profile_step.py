@@ -2,14 +2,13 @@
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
-    python3 -m breeze_tpu_torch.profile_step [--case bomex|bubble|ridge|moist] [--trace FILE]
+    python3 -m breeze_tpu_torch.profile_step [--case CASE] [--trace FILE]
 
-It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s), the
-256×256×128 dry bubble (compressible, WS-RK3 at Δt = 0.5 s), that bubble
-over the ridge (σ-coordinates, ``ridge.py``) or the moist bubble in ρe with
-direct damping, runs three warm-up steps,
-times two steps
-without the profiler (host clock ending in a synchronize), then traces
+It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s; ``bomex``,
+or ``bomex_beta`` on its β-plane), the 256×256×128 dry bubble
+(compressible, WS-RK3 at Δt = 0.5 s), that bubble over the ridge
+(σ-coordinates, ``ridge.py``) or the moist bubble in ρe with direct
+damping, runs three warm-up steps, times two steps without the profiler (host clock ending in a synchronize), then traces
 as many again with ``torch.profiler``.  From the trace's device events
 (kernels, copies, sets) it prints the device time and launches per step of
 each kind of work, and the device's busy share against the unprofiled and
@@ -37,8 +36,10 @@ from .timesteppers import ssp_rk3_step
 STEPS = 2
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("fused_tendency_kernel", "smagorinsky_nu_kernel", "fix_negative_kernel",
-               "momentum_div_kernel", "div_rho_u_c_kernel", "acoustic_column_kernel",
-               "acoustic_damp_kernel")
+               "momentum_div_cols_kernel", "momentum_div_kernel", "div_rho_u_c_kernel",
+               "acoustic_column_kernel", "acoustic_damp_kernel", "closure_nu_kernel",
+               "closure_tendencies_kernel", "divergence_kernel", "gradient_correct_kernel")
+BOMEX_ROUTES = {"bomex": {}, "bomex_beta": dict(coriolis=bomex.BETA_PLANE)}
 
 
 def kind(event: dict) -> str:
@@ -61,7 +62,8 @@ def kind(event: dict) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--case", choices=("bomex", "bubble", "ridge", "moist"), default="bomex")
+    parser.add_argument("--case", choices=(*BOMEX_ROUTES, "bubble", "ridge", "moist"),
+                        default="bomex")
     parser.add_argument("--trace", help="keep the Chrome trace here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -69,9 +71,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
-    if args.case == "bomex":
-        size, label = (256, 256, 256), "256^3 BOMEX"
-        model = bomex.bomex_model(size, dtype=torch.float32, device="cuda")
+    if args.case in BOMEX_ROUTES:
+        size, label = (256, 256, 256), f"256^3 {args.case}"
+        model = bomex.bomex_model(size, device="cuda", **BOMEX_ROUTES[args.case])
         noise = 0.1 * np.random.default_rng(1).standard_normal(model.grid.shape)
         state = bomex.bomex_state(model, noise)
         step = lambda s: ssp_rk3_step(model, s, 1.0)

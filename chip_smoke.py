@@ -16,11 +16,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    its G and its increment each measured against their own size), with
    both times;
 4. a small BOMEX run through the kernels against the same run through the
-   plain versions on the CPU;
+   plain versions on the CPU, with the CPU float32-vs-float64 distance;
 5. the anelastic slice: 256³ BOMEX (``bench.py``'s configuration, random θ
-   noise from a fixed seed), 2 warm-up and 10 timed SSP-RK3 steps at
-   Δt = 1 s, with the launch counts, finiteness and the ∫ρθΔz / ∫ρqᵗΔz
-   drift checked;
+   noise from a fixed seed; the fused tendency kernel, the projection
+   kernels), 2 warm-up and 10 timed SSP-RK3 steps at Δt = 1 s, with the
+   launch counts, finiteness and the ∫ρθΔz / ∫ρqᵗΔz drift checked;
 6. a per-layer breakdown of one more BOMEX step;
 7. each compressible kernel against its plain version at 256×256×128 (the
    bubble with noise on its momenta and ρθ; one 7-substep acoustic stage
@@ -57,7 +57,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the moist bubble in ρe with direct damping, and the dry bubble with
     bfloat16 carries (``--substep-floattype bfloat16``), with the launch
     counts, finiteness and the ∫ρ dV, ∫ρθ dV, ∫ρqᵗ dV drift checked;
-18. a per-layer breakdown of one more moist ρe step.
+18. a per-layer breakdown of one more moist ρe step;
+19. the anelastic route kernels against their plain versions at the 256³
+    BOMEX shapes: the column-momentum kernel on the noisy BOMEX state's
+    velocity windows, the projection kernels on a stage's predicted
+    momenta and that stage's φ, the closure kernel on the moist windows
+    with θᵥ, with both times;
+20. two steps of BOMEX on the β-plane at 64×32×32 through the kernels
+    against the same steps through the plain versions on the CPU, as
+    phase 4;
+21. BOMEX on the β-plane (the unfused route: the column-momentum, scalar,
+    closure and projection kernels, whole-field Coriolis, the forcings'
+    columns) at 256³, 2 warm-up and 10 timed steps, checked as phase 5;
+22. a per-layer breakdown of one more β-plane step.
 
 Each path's launch counts are zeroed just before its timed steps and read
 just after.  The line before the last is a JSON object with one entry per
@@ -82,8 +94,8 @@ from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as M
 from breeze_tpu_torch.dynamics import compressible as C
 from breeze_tpu_torch.dynamics.terrain import kinematic_bottom_rho_w
-from breeze_tpu_torch.kernels import (_build, acoustic, advection, columnar,
-                                      momentum, tendency)
+from breeze_tpu_torch.kernels import (_build, acoustic, advection, closure, columnar,
+                                      momentum, projection, tendency)
 from breeze_tpu_torch.kernels.weno import H
 from breeze_tpu_torch.physics.microphysics import apply_negative_moisture_correction
 
@@ -100,7 +112,7 @@ DRIFT_BOUND = {"rho_theta": 5e-6, "rho_qt": 5e-6}
 # (1−α is rounded on the host) and a Δt at which αΔt·G stands well above the
 # float32 rounding of the O(1)–O(300) state it is added to
 ALPHA, PARITY_DT = 2.0 / 3.0, 3.0
-PHASES = 18
+PHASES = 22
 
 # The compressible slice: bench.py --dynamics compressible
 SIZE_C = (256, 256, 128)
@@ -159,7 +171,31 @@ OPS_PER_POINT = {
     # the direct form: δ 7 and E 14 for the thermal form's E 16
     "acoustic_substeps_direct": 115,
     "acoustic_substeps_crho_direct": 140,
+    "momentum_div_cols": 678,  # momentum_div's 675 and ρᵣ(z)·u, ρᵣ(z)·v, ρᵣ(z)·w, 3
+    "closure": 390,            # strains, ν, the θᵥ correction, five flux divergences
+    "divergence": 8,
+    "gradient_correct": 12,
 }
+
+# The anelastic paths, as bomex_model's Coriolis: the canonical f-plane
+# (the fused tendency kernel's route) and BOMEX's β-plane (the unfused
+# route), each with the launches per step it must show (fix_negative at
+# least once)
+BOMEX_PATHS = {
+    "bomex": (None, {"fused_tendency": 3, "momentum_div_cols": 0, "div_rho_u_c": 0,
+                     "closure": 0, "divergence": 3, "gradient_correct": 3,
+                     "fix_negative": 1}),
+    "bomex_beta": (bomex.BETA_PLANE,
+                   {"fused_tendency": 0, "momentum_div_cols": 3, "div_rho_u_c": 6,
+                    "closure": 3, "divergence": 3, "gradient_correct": 3,
+                    "fix_negative": 1}),
+}
+# two steps at 64×32×32, CUDA against CPU float32, state-relative: float32
+# reassociation between the kernels and the plain versions through six
+# stages and projections.  On the β-plane the distance read 1.71e-07–
+# 4.26e-07 on an H100 beside a float32-vs-float64 distance of 1.65e-07–
+# 4.85e-07, so its limit is a small factor above both
+SMALL_LIMIT = {"bomex": 1e-5, "bomex_beta": 3e-6}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -259,9 +295,10 @@ def phase_build() -> dict:
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = next((k for k in ("fused_tendency", "smagorinsky_nu",
-                                      "fix_negative", "momentum_div",
+                                      "fix_negative", "momentum_div_cols", "momentum_div",
                                       "div_rho_u_c", "acoustic_column",
-                                      "acoustic_damp") if k in line), "?")
+                                      "acoustic_damp", "closure_nu", "closure_tendencies",
+                                      "divergence", "gradient_correct") if k in line), "?")
             if entry.startswith("acoustic"):
                 entry = acoustic_label(line)
         elif "spill stores" in line:
@@ -385,71 +422,74 @@ def phase_parity(model, state) -> list[dict]:
     return entries
 
 
-def phase_small_reference() -> None:
-    """Two BOMEX steps at 64×32×32 through the CUDA kernels against the same
-    steps through the plain versions on the CPU."""
-    size, nz_ny_nx = (64, 32, 32), (32, 32, 64)
-    noise = 0.1 * np.random.default_rng(SEED).standard_normal(nz_ny_nx)
+def phase_small_reference(path: str, phase: int) -> None:
+    """Two steps of a BOMEX path at 64×32×32 through the CUDA kernels
+    against the same steps through the plain versions on the CPU, with the
+    CPU float32-vs-float64 distance beside each field's."""
+    size, shape = (64, 32, 32), (32, 32, 64)
+    noise = 0.1 * np.random.default_rng(SEED).standard_normal(shape)
     runs = {}
-    for device in ("cuda", "cpu"):
-        model = bomex.bomex_model(size, dtype=torch.float32, device=device)
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = bomex.bomex_model(size, dtype=dtype, device=device,
+                                  coriolis=BOMEX_PATHS[path][0])
         state = bomex.bomex_state(model, noise)
         for _ in range(2):
             state = bt.ssp_rk3_step(model, state, DT)
-        runs[device] = state
+        runs[device, dtype] = {k: getattr(state, k).cpu().double() for k in NAMES}
+    ref, f64 = runs["cpu", torch.float32], runs["cpu", torch.float64]
     # the projection couples the momenta, so each momentum component is
     # measured against the largest momentum; scalars against themselves
-    cpu = {k: getattr(runs["cuda"], k).cpu() for k in NAMES}
-    ref = {k: getattr(runs["cpu"], k) for k in NAMES}
-    mom_scale = max(float(ref[k].abs().max()) for k in NAMES[:3])
-    worst = []
+    mom_scale = max(float(f64[k].abs().max()) for k in NAMES[:3])
+    limit, parts = SMALL_LIMIT[path], []
     for name in NAMES:
-        err = float((cpu[name].double() - ref[name].double()).abs().max())
-        scale = mom_scale if name in NAMES[:3] else float(ref[name].abs().max())
-        worst.append(f"{name} {err / scale:.1e}")
-        # float32 reassociation between the kernel and the plain version,
-        # carried through six stages and projections
-        if not err / scale < 1e-5:
-            raise AssertionError(f"64x32x32 after 2 steps, {name}: abs {err:.3e} "
-                                 f"rel {err / scale:.3e}")
-    print(f"[4/{PHASES}] 64x32x32 BOMEX, 2 steps, CUDA vs CPU plain (state-relative): "
-          + ", ".join(worst))
+        scale = mom_scale if name in NAMES[:3] else float(f64[name].abs().max())
+        err = float((runs["cuda", torch.float32][name] - ref[name]).abs().max()) / scale
+        gap = float((ref[name] - f64[name]).abs().max()) / scale
+        parts.append(f"{name} {err:.2e} (f32-vs-f64 {gap:.2e})")
+        if not err < limit:
+            raise AssertionError(f"64x32x32 {path} after 2 steps, {name}: rel {err:.3e} "
+                                 f"(limit {limit})")
+    print(f"[{phase}/{PHASES}] 64x32x32 {path}, 2 steps, CUDA vs CPU plain float32 "
+          f"(state-relative, limit {limit}): " + ", ".join(parts))
 
 
-def phase_slice(model, state, label: str) -> tuple[dict, object]:
+def phase_slice(model, state, label: str, path: str, phase: int) -> tuple[dict, object]:
+    """2 warm-up and 10 timed steps of a BOMEX path at 256³; returns the
+    launches per step of every kernel and the final state."""
     totals0 = column_totals(model, state)
     for _ in range(WARMUP):
         state = bt.ssp_rk3_step(model, state, DT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tendency.launches = 0
-    columnar.launches = 0
+    zero_route_counts()
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state = bt.ssp_rk3_step(model, state, DT)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = {"fused_tendency": tendency.launches, "fix_negative": columnar.launches}
-    if counts["fused_tendency"] != 3 * STEPS or counts["fix_negative"] < STEPS:
-        raise AssertionError(f"the main path missed its kernels: {counts}")
+    per_step = {k: v / STEPS for k, v in route_counts().items()}
+    for k, n in BOMEX_PATHS[path][1].items():
+        if not (per_step[k] >= n if k == "fix_negative" else per_step[k] == n):
+            raise AssertionError(f"{path} missed its kernels: {per_step}")
     for name in NAMES:
         if not bool(torch.isfinite(getattr(state, name)).all()):
-            raise AssertionError(f"{name} is not finite after {WARMUP + STEPS} steps")
+            raise AssertionError(f"{path}: {name} is not finite after {WARMUP + STEPS} steps")
     totals1 = column_totals(model, state)
     drift = {k: abs(totals1[k] - totals0[k]) / abs(totals0[k]) for k in totals0}
-    for k, bound in DRIFT_BOUND.items():
-        if not drift[k] < bound:
-            raise AssertionError(f"∫{k}Δz drifted by {drift[k]:.3e} (bound {bound})")
+    for k, limit in DRIFT_BOUND.items():
+        if not drift[k] < limit:
+            raise AssertionError(f"{path}: ∫{k}Δz drifted by {drift[k]:.3e} (bound {limit})")
     ms = 1e3 * elapsed / STEPS
     points = SIZE[0] * SIZE[1] * SIZE[2]
-    print(f"[5/{PHASES}] 256^3 BOMEX: {ms:.2f} ms/step, {points / (ms * 1e-3):.4e} points/s "
-          f"on {label}; launches {counts}; drift θ {drift['rho_theta']:.2e} "
-          f"qt {drift['rho_qt']:.2e}; peak memory "
+    print(f"[{phase}/{PHASES}] 256^3 {path}: {ms:.2f} ms/step, {points / (ms * 1e-3):.4e} "
+          f"points/s on {label}; launches per step {per_step}; drift θ "
+          f"{drift['rho_theta']:.2e} qt {drift['rho_qt']:.2e}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts, state
+    return per_step, state
 
 
-def phase_breakdown(model, state, label: str) -> None:
+def phase_breakdown(model, state, label: str, phase: int = 6, what: str = "step") -> None:
     """One step with the device drained between layers (host clock)."""
     spans = {"fix_negative": 0.0, "diagnose": 0.0, "tendency+extras": 0.0,
              "projection": 0.0}
@@ -473,7 +513,7 @@ def phase_breakdown(model, state, label: str) -> None:
             model, ns.rho_u, ns.rho_v, ns.rho_w, alpha * DT))
         state = ns.replace(rho_u=ru, rho_v=rv, rho_w=rw)
     total = sum(spans.values())
-    print(f"[6/{PHASES}] one step by layer on {label}, ms (synchronized): "
+    print(f"[{phase}/{PHASES}] one {what} by layer on {label}, ms (synchronized): "
           + ", ".join(f"{k} {v:.2f}" for k, v in spans.items())
           + f"; total {total:.2f}")
 
@@ -934,6 +974,122 @@ def phase_moist_small() -> None:
           + ", ".join(worst))
 
 
+def zero_route_counts() -> None:
+    tendency.launches = columnar.launches = advection.launches = closure.launches = 0
+    momentum.launches = momentum.cols_launches = 0
+    projection.div_launches = projection.grad_launches = 0
+
+
+def route_counts() -> dict:
+    return {"fused_tendency": tendency.launches, "momentum_div_cols": momentum.cols_launches,
+            "div_rho_u_c": advection.launches, "closure": closure.launches,
+            "divergence": projection.div_launches, "gradient_correct": projection.grad_launches,
+            "fix_negative": columnar.launches, "momentum_div": momentum.launches}
+
+
+def check_allclose(what: str, pairs, rtol: float, atol: float) -> float:
+    """Each (got, ref) within atol + rtol·|ref| pointwise, as
+    ``np.testing.assert_allclose``; returns the largest absolute error."""
+    worst = 0.0
+    for name, got, ref in pairs:
+        diff = (got.double() - ref.double()).abs()
+        excess = float((diff - (atol + rtol * ref.double().abs())).max())
+        if not excess <= 0.0:
+            raise AssertionError(f"{what} {name}: max abs {float(diff.max()):.3e} exceeds "
+                                 f"atol {atol} + rtol {rtol}·|ref| by {excess:.3e}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_route_parity(model, state) -> list[dict]:
+    """The four kernels of the anelastic routes against their plain versions
+    at the 256³ BOMEX shapes, each at its reference test's limit."""
+    g = model.grid
+    points = g.nx * g.ny * g.nz
+    cfg, cols, ref_state = model.tendency_config, model.tendency_columns, model.reference
+    s, s0 = perturbed(model, state, SEED + 1)
+    aux = M.diagnose(model, s, T_guess=s.diagnostics["T_warm"])
+    _, _, u, v, w, scalars, _, thb = M.tendency_kernel_args(model, s, aux, DT, s0, ALPHA)[:8]
+    entries, lines = [], []
+
+    def entry(name, source, replaces, max_abs, fn, plain, inputs, outputs, reps):
+        e = dict(name=name, route="cuda", source=f"breeze_tpu_torch/csrc/{source}",
+                 replaces=f"breeze_tpu/pallas_kernels/{replaces}", max_abs_err=max_abs,
+                 ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain, 3),
+                 **bound(name, inputs, outputs, g.shape, points))
+        entries.append(e)
+        lines.append(f"{name} max abs err {max_abs:.3e}, kernel {e['ms']:.3f} ms, plain "
+                     f"{e['plain_ms']:.3f} ms, bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+
+    # the column-momentum kernel on the noisy state's velocity windows;
+    # TestFusedMomentum's limit, rtol = atol = 5e-4 (row 0 of dw is the wall's)
+    margs = (u, v, w, cols.colc, cols.colf, cols.invdzc, cols.invdzf, cfg.inv_dx, cfg.inv_dy)
+    got = momentum.momentum_div_cols(*margs)
+    torch.cuda.synchronize()
+    ref = momentum.momentum_div_cols_plain(*margs)
+    max_abs = check_allclose("momentum_div_cols", [("du", got[0], ref[0]), ("dv", got[1], ref[1]),
+                                                   ("dw", got[2][1:], ref[2][1:])], 5e-4, 5e-4)
+    rel = max(rel_to_max(a[1:], b[1:])[1] for a, b in zip(got, ref))
+    del ref
+    entry("momentum_div_cols", "momentum.cu", "momentum.py:309", max_abs,
+          lambda: momentum.momentum_div_cols(*margs),
+          lambda: momentum.momentum_div_cols_plain(*margs), flat(margs), got, 20)
+    lines[-1] += f", largest-value-relative {rel:.2e}"
+    del got
+
+    # the closure kernel on the moist windows with θᵥ; TestClosureKernel's
+    # limit, 2e-4 of each output's largest value (row 0 of G_w is the wall's)
+    cargs = (cfg, cols, u, v, w, thb, scalars)
+    got = closure.closure_tendencies(*cargs)
+    torch.cuda.synchronize()
+    pairs = [(n, a[1:] if n == "G_w" else a, b[1:] if n == "G_w" else b)
+             for n, a, b in zip(("G_u", "G_v", "G_w", "G_theta", "G_qt"), got,
+                                closure.closure_tendencies_plain(*cargs))]
+    max_abs = check_rel("closure", pairs, 2e-4)
+    rel = max(rel_to_max(a, b)[1] for _, a, b in pairs)
+    del pairs
+    entry("closure", "closure.cu", "closure.py:298", max_abs,
+          lambda: closure.closure_tendencies(*cargs),
+          lambda: closure.closure_tendencies_plain(*cargs),
+          flat(u, v, w, thb, scalars, cols.colc, cols.colf, cols.invdzc_e, cols.invdzf_e,
+               cols.cd2_e), got, 10)
+    lines[-1] += f", largest-value-relative {rel:.2e}"
+    del got, cargs, margs, u, v, w, scalars, thb
+
+    # the projection kernels on the third stage's predicted momenta and its
+    # φ, at Δt = αΔt = 2/3 s; TestFusedProjection's limit, rtol = atol = 2e-5
+    ns = M.stage_update(model, s, s0, DT, ALPHA, aux=aux)
+    del aux
+    ru, rv, rw = fl.enforce_wall_normals(g, ns.rho_u, ns.rho_v, ns.rho_w)
+    del ns
+    dargs = (ru, rv, rw, cols.invdzc, cfg.inv_dx, cfg.inv_dy)
+    div = projection.divergence(*dargs)
+    torch.cuda.synchronize()
+    max_abs = check_allclose("divergence", [("delta", div, projection.divergence_plain(*dargs))],
+                             2e-5, 2e-5)
+    entry("divergence", "projection.cu", "projection.py:86", max_abs,
+          lambda: projection.divergence(*dargs), lambda: projection.divergence_plain(*dargs),
+          flat(ru, rv, rw, cols.invdzc), [div], 20)
+    dt = ALPHA * DT
+    phi = model.solver.solve(div, dt)
+    gargs = (phi, ru, rv, rw, ref_state.rho_c, ref_state.rho_f[: g.nz], cols.invdzf,
+             cfg.inv_dx, cfg.inv_dy, dt)
+    got = projection.gradient_correct(*gargs)
+    torch.cuda.synchronize()
+    max_abs = check_allclose("gradient_correct",
+                             zip(("rho_u", "rho_v", "rho_w"), got,
+                                 projection.gradient_correct_plain(*gargs)), 2e-5, 2e-5)
+    if bool(got[2][0].any()):
+        raise AssertionError("gradient_correct left the bottom face of rho_w unpinned")
+    entry("gradient_correct", "projection.cu", "projection.py:181", max_abs,
+          lambda: projection.gradient_correct(*gargs),
+          lambda: projection.gradient_correct_plain(*gargs),
+          flat(gargs[:7]), got, 20)
+    print(f"[19/{PHASES}] anelastic route kernels at 256^3 BOMEX shapes, each against its "
+          "plain version: " + "; ".join(lines))
+    return entries
+
+
 def main() -> int:
     name, smi = phase_device()
     registers = phase_build()
@@ -942,8 +1098,9 @@ def main() -> int:
     noise = 0.1 * np.random.default_rng(SEED).standard_normal(model.grid.shape)
     state = bomex.bomex_state(model, noise)
     entries = phase_parity(model, state)
-    phase_small_reference()
-    counts, state = phase_slice(model, state, smi)
+    phase_small_reference("bomex", 4)
+    bomex_per_step, state = phase_slice(model, state, smi, "bomex", 5)
+    counts = {k: v * STEPS for k, v in bomex_per_step.items()}
     phase_breakdown(model, state, smi)
     del model, state
     model = bubble.bubble_model(SIZE_C, dtype=torch.float32, device=device)
@@ -964,7 +1121,7 @@ def main() -> int:
     del model, state
     torch.cuda.empty_cache()
     # launches per step of every kernel on each path
-    per_step = {"bomex": {k: counts[k] / STEPS for k in ("fused_tendency", "fix_negative")},
+    per_step = {"bomex": bomex_per_step,
                 "bubble": {k: v / STEPS for k, v in c_counts.items()},
                 "ridge": {k: v / STEPS for k, v in r_counts.items()}}
     entries += phase_branch_parity(device, registers)
@@ -982,6 +1139,22 @@ def main() -> int:
     counts["acoustic_substeps_rhoe_direct"] = per_step["moist_rhoe_direct"][
         "acoustic_substeps"] * STEPS
     counts["acoustic_substeps_bf16"] = per_step["bf16"]["acoustic_substeps"] * STEPS
+    del rhoe
+    torch.cuda.empty_cache()
+
+    model = bomex.bomex_model(SIZE, device=device)
+    entries += phase_route_parity(model, bomex.bomex_state(model, noise))
+    del model
+    torch.cuda.empty_cache()
+    phase_small_reference("bomex_beta", 20)
+    model = bomex.bomex_model(SIZE, device=device, coriolis=bomex.BETA_PLANE)
+    per_step["bomex_beta"], state = phase_slice(model, bomex.bomex_state(model, noise), smi,
+                                                "bomex_beta", 21)
+    phase_breakdown(model, state, smi, 22, "bomex_beta step")
+    del model, state
+    torch.cuda.empty_cache()
+    for kernel in ("momentum_div_cols", "closure"):
+        counts[kernel] = per_step["bomex_beta"][kernel] * STEPS
     # the acoustic wrapper counts its instances together; each acoustic entry
     # measures the instance that one path's model runs
     acoustic_instance = {"bubble": "acoustic_substeps", "ridge": "acoustic_substeps_terrain",
@@ -1004,7 +1177,11 @@ def main() -> int:
                         "acoustic_substeps_rhoe_direct": ("acoustic_column[crho]",
                                                           "acoustic_damp"),
                         "acoustic_substeps_bf16": ("acoustic_column[bf16]",
-                                                   "acoustic_damp[bf16]")}
+                                                   "acoustic_damp[bf16]"),
+                        "momentum_div_cols": ("momentum_div_cols",),
+                        "closure": ("closure_nu", "closure_tendencies"),
+                        "divergence": ("divergence",),
+                        "gradient_correct": ("gradient_correct",)}
     for entry in entries:
         kernel = entry["name"]
         entry["launches"] = int(counts[kernel])

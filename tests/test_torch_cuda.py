@@ -18,7 +18,8 @@ from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as TM
 from breeze_tpu_torch.dynamics import compressible as TC
 from breeze_tpu_torch.dynamics import terrain as TT
-from breeze_tpu_torch.kernels import acoustic, advection, columnar, momentum, tendency
+from breeze_tpu_torch.kernels import (acoustic, advection, closure, columnar, momentum,
+                                      projection, tendency)
 
 NAMES = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
 
@@ -416,4 +417,133 @@ def test_cuda_bubble_step_goes_through_the_kernels(cuda_device):
     assert (momentum.launches - counts[0], advection.launches - counts[1],
             acoustic.launches - counts[2]) == (3, 3, 28)
     for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+
+
+# ---------------------------------------------------------------------------
+# The anelastic routes outside the fused tendency kernel
+# ---------------------------------------------------------------------------
+
+def _anelastic(size, stretched, device, moist):
+    """An anelastic model with Smagorinsky-Lilly (moist: with saturation
+    adjustment) on an (nx, ny, nz) grid with Δx = 50 m and z uniform
+    (25 m) or stretched, and its perturbed BOMEX-like state's diagnostics
+    and windows: noise on every velocity (w off the bottom face), θ with a
+    stable gradient and noise, qᵗ decaying with height."""
+    nx, ny, nz = size
+    z = (np.concatenate([[0.0], np.cumsum(20.0 * 1.05 ** np.arange(nz))])
+         if stretched else (0.0, 25.0 * nz))
+    g = bt.make_grid(size, x=(0.0, 50.0 * nx), y=(0.0, 50.0 * ny), z=z,
+                     dtype=torch.float32, device=device)
+    model = bt.make_model(g, advection=bt.WENO(5), potential_temperature=300.0,
+                          closure=bt.SmagorinskyLilly(),
+                          microphysics=bt.SaturationAdjustment() if moist else None)
+    rng = np.random.default_rng(13)
+    noise = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
+                                       device=device)
+    w = noise(0.5)
+    w[0] = 0.0
+    state = bt.initial_state(
+        model, u=lambda x, y, z: 2.0 + 0.0 * z + noise(1.0),
+        v=lambda x, y, z: 0.0 * z + noise(1.0),
+        theta=lambda x, y, z: 300.0 + 3e-3 * z + noise(0.2),
+        qt=(lambda x, y, z: 0.015 * torch.exp(-z / 1500.0) + 0.0 * x) if moist else None)
+    state = state.replace(rho_w=w * model.reference.rho_f_col)
+    aux = TM.diagnose(model, state)
+    args = TM.tendency_kernel_args(model, state, aux, 1.0, state, 1.0)
+    return model, state, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched", [((64, 32, 32), False), ((36, 20, 13), True)],
+                         ids=["blocks", "ragged_stretched"])
+def test_cuda_momentum_div_cols_matches_plain(cuda_device, size, stretched):
+    model, _, args = _anelastic(size, stretched, cuda_device, moist=False)
+    cfg, cols, u, v, w = args[:5]
+    margs = (u, v, w, cols.colc, cols.colf, cols.invdzc, cols.invdzf, cfg.inv_dx, cfg.inv_dy)
+    before = momentum.cols_launches
+    got = momentum.momentum_div_cols(*margs)
+    torch.cuda.synchronize()
+    assert momentum.cols_launches == before + 1
+    for name, g, r in zip("uvw", got, momentum.momentum_div_cols_plain(*margs)):
+        if name == "w":
+            g, r = g[1:], r[1:]     # row 0 reads below-wall data; the wall overwrites it
+        # float32 reassociation and FMA contraction: 1e-5 of the largest value
+        assert _rel_to_max(g, r) < 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,dt", [((64, 32, 32), False, 1.0),
+                                               ((36, 20, 13), True, 2.0 / 3.0)],
+                         ids=["blocks", "ragged_stretched_dt"])
+def test_cuda_projection_matches_plain(cuda_device, size, stretched, dt):
+    """The divergence and the gradient correction on noisy momenta and φ,
+    at a Δt of 1 and one of another stage's.  ρw is noisy on the bottom
+    face too: the correction must pin it whatever it is given."""
+    model, state, _ = _anelastic(size, stretched, cuda_device, moist=False)
+    cfg, cols, ref = model.tendency_config, model.tendency_columns, model.reference
+    rng = np.random.default_rng(14)
+    noise = lambda: torch.as_tensor(rng.normal(0.0, 1.0, model.grid.shape),
+                                    dtype=torch.float32, device=cuda_device)
+    ru, rv, rw, phi = state.rho_u + noise(), state.rho_v + noise(), noise(), noise()
+    dargs = (ru, rv, rw, cols.invdzc, cfg.inv_dx, cfg.inv_dy)
+    nz = model.grid.nz
+    gargs = (phi, ru, rv, rw, ref.rho_c, ref.rho_f[:nz], cols.invdzf, cfg.inv_dx,
+             cfg.inv_dy, dt)
+    before = (projection.div_launches, projection.grad_launches)
+    got_div = projection.divergence(*dargs)
+    got_grad = projection.gradient_correct(*gargs)
+    torch.cuda.synchronize()
+    assert (projection.div_launches, projection.grad_launches) == (before[0] + 1, before[1] + 1)
+    # TestFusedProjection's limits: rtol 2e-5, atol 2e-5 (float32 reordering)
+    torch.testing.assert_close(got_div, projection.divergence_plain(*dargs), rtol=2e-5, atol=2e-5)
+    for name, g, r in zip(("rho_u", "rho_v", "rho_w"), got_grad,
+                          projection.gradient_correct_plain(*gargs)):
+        torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-5, msg=name)
+    assert not got_grad[2][0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,moist", [((64, 32, 32), False, False),
+                                                  ((64, 32, 32), True, True),
+                                                  ((36, 20, 13), True, True)],
+                         ids=["blocks_dry", "blocks_stretched_moist", "ragged_stretched_moist"])
+def test_cuda_closure_matches_plain(cuda_device, size, stretched, moist):
+    """The closure kernel on the windows of the fused stage (moist: with the
+    θᵥ window of Lilly's correction), each output against its own largest
+    value."""
+    model, _, args = _anelastic(size, stretched, cuda_device, moist)
+    cfg, cols, u, v, w, scalars, _, thb = args[:8]
+    assert (thb is scalars[0]) != moist
+    cargs = (cfg, cols, u, v, w, thb, scalars)
+    before = closure.launches
+    got = closure.closure_tendencies(*cargs)
+    torch.cuda.synchronize()
+    assert closure.launches == before + 1
+    assert len(got) == 3 + len(scalars)
+    # row 0 of G_w, which the wall condition overwrites, is held too: both
+    # sides read the same pads there, and it is the only row where the ν
+    # wall mirror shows (the strains at the wall faces vanish elsewhere)
+    for name, g, r in zip(("G_u", "G_v", "G_w", "G_theta", "G_qt"), got,
+                          closure.closure_tendencies_plain(*cargs)):
+        # float32 reassociation and FMA contraction: 1e-5 of the largest
+        # value, tighter than TestClosureKernel's 2e-4
+        assert _rel_to_max(g, r) < 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["bomex", "bomex_beta"])
+def test_cuda_anelastic_route_step_goes_through_its_kernels(cuda_device, path):
+    coriolis = bomex.BETA_PLANE if path == "bomex_beta" else None
+    model = bomex.bomex_model((32, 32, 32), device=cuda_device, coriolis=coriolis)
+    state = bomex.bomex_state(model, _noise(model.grid.shape))
+    counters = lambda: (tendency.launches, momentum.cols_launches, advection.launches,
+                        closure.launches, projection.div_launches,
+                        projection.grad_launches, columnar.launches)
+    before = counters()
+    state = ssp_rk3_step(model, state, 1.0)
+    torch.cuda.synchronize()
+    ran = tuple(a - b for a, b in zip(counters(), before))
+    assert ran == ((0, 3, 6, 3, 3, 3, 1) if path == "bomex_beta" else (3, 0, 0, 0, 3, 3, 1))
+    for name in NAMES:
         assert bool(torch.isfinite(getattr(state, name)).all()), name
