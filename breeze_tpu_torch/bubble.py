@@ -17,7 +17,10 @@ package:
   (``tools/tpu_check_k3_envelope.py``'s ``rhoe+direct``): ρe for ρθ and the
   direct divergence damping for the thermal;
 - ``substep_floattype="bfloat16"`` (``bench.py --substep-floattype
-  bfloat16``): the acoustic carries stored in bfloat16.
+  bfloat16``): the acoustic carries stored in bfloat16;
+- ``per_substep_kernels=True`` (``bench.py --dynamics compressible`` with
+  ``BREEZE_TPU_PALLAS_ACOUSTIC_SPLIT=1``): the substeps through the kernel
+  pair K1/K2, dry or with bfloat16 carries.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ EXTENT = (12_800.0, 12_800.0, 3_200.0)
 def bubble_model(size, *, dtype: torch.dtype = torch.float32, device="cuda",
                  extent=EXTENT, moist: bool = False,
                  formulation: str = "potential_temperature", damping=None,
-                 substep_floattype: str | None = None) -> CompressibleModel:
+                 substep_floattype: str | None = None,
+                 per_substep_kernels: bool = False) -> CompressibleModel:
     """The bubble model on an ``(nx, ny, nz)`` grid over ``extent``;
     ``damping`` a divergence-damping strategy, which replaces the default
     thermal damping."""
@@ -48,6 +52,7 @@ def bubble_model(size, *, dtype: torch.dtype = torch.float32, device="cuda",
                      dtype=dtype, device=device)
     td = SplitExplicitTimeDiscretization(
         acoustic_cfl=0.5, substep_floattype=substep_floattype, damping=damping,
+        per_substep_kernels=per_substep_kernels,
         **({} if damping is None else {"damping_coefficient": 0.0}))
     return make_compressible_model(
         grid, advection=WENO(5), coriolis=FPlane(1e-4), time_discretization=td,

@@ -79,25 +79,9 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-namespace {
+#include "carry.cuh"
 
-// Loads and stores of a carried field in its storage type; arithmetic is
-// float32.  st() returns the value as stored.
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ float rd(const float* p) { return *p; }
-__device__ __forceinline__ float rd(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float st(float* p, float v) {
-  *p = v;
-  return v;
-}
-__device__ __forceinline__ float st(__nv_bfloat16* p, float v) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(v);
-  *p = b;
-  return __bfloat162float(b);
-}
+namespace {
 
 template <typename T>
 struct AcArgs {

@@ -34,7 +34,9 @@ substep storage; no, thermal (without ``damp_vertical``) or direct
 divergence damping; the proportional substep plan with N from
 ``acoustic_cfl``; flat or :class:`~.terrain.TerrainMetrics` terrain
 (LinearDecay or SLEVE), dry and in ρθ over terrain; no sponge or an
-:class:`UpperSponge`.
+:class:`UpperSponge`; the per-substep kernel pair K1/K2 in place of the
+stage's acoustic kernel on flat terrain in ρθ with no or thermal damping
+and no sponge.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..advection import WENO
 from ..grid import Grid, Topology
 from ..kernels.acoustic import (AcousticConfig, Perturbations, TerrainFields, ZColumns,
                                acoustic_substeps)
+from ..kernels.acoustic_split import acoustic_substeps_split
 from ..kernels.advection import div_rho_u_c
 from ..kernels.momentum import momentum_div
 from ..kernels.weno import H
@@ -129,7 +132,15 @@ class SplitExplicitTimeDiscretization:
     ``substep_floattype`` ``None`` (float32 carries) or ``"bfloat16"``;
     ``sponge`` an optional :class:`UpperSponge`.  ``substeps`` and
     ``substep_distribution`` exist for the reference's signature; the port
-    takes only their defaults (the ``proportional`` substep plan)."""
+    takes only their defaults (the ``proportional`` substep plan).
+
+    ``per_substep_kernels`` runs each substep through the kernel pair K1/K2
+    (``kernels/acoustic_split.py``) in place of the stage's acoustic kernel:
+    the counterpart of the reference's ``BREEZE_TPU_PALLAS_ACOUSTIC_SPLIT``
+    switch, as an argument.  The pair covers flat terrain, the
+    potential-temperature formulation, no or thermal damping and no sponge;
+    the model refuses it elsewhere, where the reference falls back to its
+    jnp loop."""
 
     substeps: int | None = None
     acoustic_cfl: float = 0.5
@@ -140,6 +151,7 @@ class SplitExplicitTimeDiscretization:
     damping: Any = None
     sponge: Any = None
     substep_distribution: str = "proportional"
+    per_substep_kernels: bool = False
 
     def damping_strategy(self):
         if self.damping is not None:
@@ -235,6 +247,13 @@ def _check_envelope(grid, momentum_advection, scalar_advection, coriolis, td,
             problems.append("substep_floattype must be None or 'bfloat16'")
         if td.sponge is not None and not isinstance(td.sponge, UpperSponge):
             problems.append("the sponge must be an UpperSponge")
+        if td.per_substep_kernels:
+            # the K1/K2 pair's envelope (acoustic.py:904-949 with the switch set)
+            pair = {"terrain": terrain is not None, "an UpperSponge": td.sponge is not None,
+                    "the static_energy formulation": formulation == "static_energy",
+                    "DirectDivergenceDamping": isinstance(strategy, DirectDivergenceDamping)}
+            problems += [f"per_substep_kernels with {what} is not ported (the K1/K2 pair "
+                         "has no such branch)" for what, on in pair.items() if on]
     if problems:
         raise NotImplementedError("outside the ported envelope: " + "; ".join(problems))
 
@@ -288,7 +307,7 @@ def make_compressible_model(grid: Grid, constants: ThermodynamicConstants | None
             g_acc=float(constants.gravitational_acceleration),
             damping=float(getattr(strategy, "coefficient", 0.0)),
             damping_mode="direct" if isinstance(strategy, DirectDivergenceDamping)
-            else "thermal"),
+            else "thermal", per_substep_kernels=td.per_substep_kernels),
         z_columns=ZColumns(dz_c=grid.dz_c, dz_f=grid.dz_f[:nz],
                            inv_dzc=inv(grid.dz_c_meta), inv_dzf=inv(grid.dz_f_meta[:nz]),
                            sponge=sponge),
@@ -631,15 +650,31 @@ def advance_scalars(model: CompressibleModel, state_n: CompressibleState,
     return new_state.replace(rho_qt=state_n.rho_qt + beta_dt * (Gq + G.rho_qt))
 
 
+def acoustic_stage(model: CompressibleModel, state: CompressibleState,
+                   state_n: CompressibleState, caches: StageCaches, G: SlowTendencies,
+                   n_tau: int, dtau: float) -> Perturbations:
+    """A stage's ``n_tau`` substeps from the rewind Uⁿ − U^L, the first
+    substep's pressure gradient gated when there is more than one, the
+    carries stored in the model's substep type: through the acoustic
+    kernel, or with ``per_substep_kernels`` through the pair K1/K2."""
+    cfg = model.acoustic_config
+    pert = stage_perturbations(state_n, state, model.substep_dtype)
+    if cfg.per_substep_kernels:
+        return acoustic_substeps_split(cfg, model.z_columns, caches, G, pert, dtau, n_tau,
+                                       gate_first=n_tau > 1)
+    return acoustic_substeps(cfg, model.z_columns, caches, G, pert, dtau, n_tau,
+                             gate_first=n_tau > 1, metrics=model.acoustic_metrics,
+                             rho_w_L=sponge_rho_w_L(model, state))
+
+
 def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
                       dt: float) -> CompressibleState:
     """One Δt of WS-RK3 with acoustic substeps (``breeze_tpu``'s
     ``acoustic_rk3_step`` without tracers or implicit diffusion).  With
     moisture, the negative-moisture repair first.  Each stage: diagnose,
     caches, slow tendencies (over terrain if the model has it), the
-    substeps with the first substep's pressure gradient gated when the
-    stage has more than one (their carries stored in the model's substep
-    type), the recovery, and with moisture the scalar transport."""
+    substeps (:func:`acoustic_stage`), the recovery, and with moisture the
+    scalar transport."""
     dt = float(dt)
     plan = stage_substep_plan(substep_count(model, dt), dt)
     if model.has_moisture:
@@ -649,11 +684,7 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
         aux = compressible_diagnose(model, state)
         caches = stage_caches(model, state, aux)
         G = stage_slow_tendencies(model, state, aux)
-        pert = acoustic_substeps(model.acoustic_config, model.z_columns, caches, G,
-                                 stage_perturbations(state_n, state, model.substep_dtype),
-                                 dtau, n_tau, gate_first=n_tau > 1,
-                                 metrics=model.acoustic_metrics,
-                                 rho_w_L=sponge_rho_w_L(model, state))
+        pert = acoustic_stage(model, state, state_n, caches, G, n_tau, dtau)
         new_state = recover(model, state, pert)
         if model.has_moisture:
             new_state = advance_scalars(model, state_n, state, new_state, pert, n_tau,

@@ -89,8 +89,9 @@ def build_log() -> str:
 #: The entry points that take (pointers, ints, floats, stream) arrays.
 ARRAY_ENTRY_POINTS = ("breeze_fused_tendency", "breeze_momentum_div",
                       "breeze_div_rho_u_c", "breeze_acoustic_column",
-                      "breeze_acoustic_damp", "breeze_closure_tendencies",
-                      "breeze_divergence", "breeze_gradient_correct")
+                      "breeze_acoustic_damp", "breeze_acoustic_k1", "breeze_acoustic_k2",
+                      "breeze_closure_tendencies", "breeze_divergence",
+                      "breeze_gradient_correct")
 
 
 def library() -> ctypes.CDLL:

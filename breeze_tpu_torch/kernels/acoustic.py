@@ -79,7 +79,9 @@ class Perturbations(NamedTuple):
 class AcousticConfig:
     """Static parameters: horizontal spacings, the CN off-centring ω, g,
     the divergence-damping coefficient (0 for none) and its form,
-    ``"thermal"`` or ``"direct"``."""
+    ``"thermal"`` or ``"direct"``, and whether the substeps run through the
+    per-substep pair K1/K2 (``kernels/acoustic_split.py``) rather than
+    these kernels."""
 
     dx: float
     dy: float
@@ -87,6 +89,7 @@ class AcousticConfig:
     g_acc: float
     damping: float
     damping_mode: str = "thermal"
+    per_substep_kernels: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

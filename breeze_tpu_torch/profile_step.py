@@ -6,7 +6,8 @@ Run on a machine with one NVIDIA GPU, from the repository root:
 
 It builds the 256³ BOMEX model (anelastic, SSP-RK3 at Δt = 1 s; ``bomex``,
 or ``bomex_beta`` on its β-plane), the 256×256×128 dry bubble
-(compressible, WS-RK3 at Δt = 0.5 s), that bubble over the ridge
+(compressible, WS-RK3 at Δt = 0.5 s; ``bubble``, or ``bubble_split``
+through the per-substep acoustic pair K1/K2), that bubble over the ridge
 (σ-coordinates, ``ridge.py``) or the moist bubble in ρe with direct
 damping, runs three warm-up steps, times two steps without the profiler (host clock ending in a synchronize), then traces
 as many again with ``torch.profiler``.  From the trace's device events
@@ -37,7 +38,8 @@ STEPS = 2
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("fused_tendency_kernel", "smagorinsky_nu_kernel", "fix_negative_kernel",
                "momentum_div_cols_kernel", "momentum_div_kernel", "div_rho_u_c_kernel",
-               "acoustic_column_kernel", "acoustic_damp_kernel", "closure_nu_kernel",
+               "acoustic_column_kernel", "acoustic_damp_kernel", "acoustic_k1_kernel",
+               "acoustic_k2_kernel", "closure_nu_kernel",
                "closure_tendencies_kernel", "divergence_kernel", "gradient_correct_kernel")
 BOMEX_ROUTES = {"bomex": {}, "bomex_beta": dict(coriolis=bomex.BETA_PLANE)}
 
@@ -62,7 +64,8 @@ def kind(event: dict) -> str:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--case", choices=(*BOMEX_ROUTES, "bubble", "ridge", "moist"),
+    parser.add_argument("--case", choices=(*BOMEX_ROUTES, "bubble", "bubble_split", "ridge",
+                                           "moist"),
                         default="bomex")
     parser.add_argument("--trace", help="keep the Chrome trace here")
     args = parser.parse_args()
@@ -79,9 +82,10 @@ def main() -> None:
         step = lambda s: ssp_rk3_step(model, s, 1.0)
     else:
         size = (256, 256, 128)
-        if args.case == "bubble":
-            label = "256x256x128 dry bubble"
-            model = bubble.bubble_model(size, device="cuda")
+        if args.case in ("bubble", "bubble_split"):
+            split = args.case == "bubble_split"
+            label = "256x256x128 dry bubble" + (" through K1/K2" if split else "")
+            model = bubble.bubble_model(size, device="cuda", per_substep_kernels=split)
         elif args.case == "moist":
             label = "256x256x128 moist bubble in rho-e with direct damping"
             model = bubble.bubble_model(size, device="cuda", moist=True,

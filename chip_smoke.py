@@ -69,7 +69,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
 21. BOMEX on the β-plane (the unfused route: the column-momentum, scalar,
     closure and projection kernels, whole-field Coriolis, the forcings'
     columns) at 256³, 2 warm-up and 10 timed steps, checked as phase 5;
-22. a per-layer breakdown of one more β-plane step.
+22. a per-layer breakdown of one more β-plane step;
+23. the per-substep acoustic pair K1/K2 at 256×256×128, each kernel
+    against its plain version on one substep of phase 7's stage (the noisy
+    bubble, noise on all five perturbations), then a 7-substep stage
+    through the pair against the plain pair, in float32 and with bfloat16
+    carries, and the same stage through K3 in turns with the pair for the
+    A/B, with both kernels' times, bounds and registers;
+24. two steps of the noisy bubble at 64×32×32 through the pair on CUDA
+    against the same steps through the plain pair on the CPU, as phase 8;
+25. the split slice, 2 warm-up and 10 timed steps each at 256×256×128 of
+    the dry bubble and the bfloat16 bubble through the pair
+    (``per_substep_kernels=True``), with the launch counts (14 K1, 14 K2,
+    no K3 per step), finiteness, the dry path's ∫ρ dV / ∫ρθ dV drift, and
+    the dry path's final state against phase 9's (K3) from the same start;
+26. a per-layer breakdown of one more split step.
 
 Each path's launch counts are zeroed just before its timed steps and read
 just after.  The line before the last is a JSON object with one entry per
@@ -94,8 +108,8 @@ from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as M
 from breeze_tpu_torch.dynamics import compressible as C
 from breeze_tpu_torch.dynamics.terrain import kinematic_bottom_rho_w
-from breeze_tpu_torch.kernels import (_build, acoustic, advection, closure, columnar,
-                                      momentum, projection, tendency)
+from breeze_tpu_torch.kernels import (_build, acoustic, acoustic_split, advection, closure,
+                                      columnar, momentum, projection, tendency)
 from breeze_tpu_torch.kernels.weno import H
 from breeze_tpu_torch.physics.microphysics import apply_negative_moisture_correction
 
@@ -112,7 +126,7 @@ DRIFT_BOUND = {"rho_theta": 5e-6, "rho_qt": 5e-6}
 # (1−α is rounded on the host) and a Δt at which αΔt·G stands well above the
 # float32 rounding of the O(1)–O(300) state it is added to
 ALPHA, PARITY_DT = 2.0 / 3.0, 3.0
-PHASES = 22
+PHASES = 26
 
 # The compressible slice: bench.py --dynamics compressible
 SIZE_C = (256, 256, 128)
@@ -150,6 +164,22 @@ MOIST_PATHS = {
                           {"rho": 5e-8, "rho_qt": 5e-8}),
     "bf16": (dict(substep_floattype="bfloat16"), {}),
 }
+# The split slice's two paths: the dry and the bfloat16 bubble through the
+# K1/K2 pair, gated as their K3 paths are (phases 9 and 17)
+SPLIT_PATHS = {
+    "bubble_split": (dict(per_substep_kernels=True), C_DRIFT_BOUND),
+    "bf16_split": (dict(per_substep_kernels=True, substep_floattype="bfloat16"), {}),
+}
+# The dry split path's final state against the K3 path's after the same 12
+# steps from the plain bubble, each field against its largest value.  The
+# momenta grow from rest by buoyancy alone and carry float32 rounding noise
+# of their own size's order: on the CPU at 64×32×32 (Δx = 50 m, Δz = 25 m,
+# as here) the same 12 steps moved them by 3.47e-03–3.96e-03 between
+# float32 and float64, and by 2.86e-04–5.11e-04 between the plain pair and
+# K3's plain loop in float32.  The two CUDA routes round independently
+# through every substep, so the limit is a small factor above the float32
+# noise, far below the O(1) a wrong term gives.
+SPLIT_VS_K3_LIMIT = 1e-2
 
 # The least time of a kernel's work: its bytes (each input read once, each
 # output written once) at the H100 SXM's 3.35 TB/s, or its float32
@@ -175,6 +205,9 @@ OPS_PER_POINT = {
     "closure": 390,            # strains, ν, the θᵥ correction, five flux divergences
     "divergence": 8,
     "gradient_correct": 12,
+    # per substep: A 12 and B 34 (K1); C 35, D 10, E 16 (K2)
+    "acoustic_k1": 46,
+    "acoustic_k2": 61,
 }
 
 # The anelastic paths, as bomex_model's Coriolis: the canonical f-plane
@@ -275,6 +308,13 @@ ACOUSTIC_INSTANCE = re.compile(r"acoustic_(column|damp)_kernelI(f|13__nv_bfloat1
                                r"(?:Lb([01])ELb([01])ELb([01])E)?")
 
 
+def split_label(line: str) -> str:
+    """``acoustic_k1``, ``acoustic_k2[bf16]``, … for a ptxas line naming an
+    instance of the K1/K2 pair."""
+    kernel, storage = re.search(r"acoustic_(k[12])_kernelI(f|13__nv_bfloat16)", line).groups()
+    return f"acoustic_{kernel}" + ("[bf16]" if storage != "f" else "")
+
+
 def acoustic_label(line: str) -> str:
     """``acoustic_column[flat]``, ``acoustic_column[terrain+sponge]``,
     ``acoustic_damp[bf16]``, … for a ptxas line naming an instance."""
@@ -297,9 +337,12 @@ def phase_build() -> dict:
             entry = next((k for k in ("fused_tendency", "smagorinsky_nu",
                                       "fix_negative", "momentum_div_cols", "momentum_div",
                                       "div_rho_u_c", "acoustic_column",
-                                      "acoustic_damp", "closure_nu", "closure_tendencies",
+                                      "acoustic_damp", "acoustic_k1", "acoustic_k2",
+                                      "closure_nu", "closure_tendencies",
                                       "divergence", "gradient_correct") if k in line), "?")
-            if entry.startswith("acoustic"):
+            if entry in ("acoustic_k1", "acoustic_k2"):
+                entry = split_label(line)
+            elif entry.startswith("acoustic"):
                 entry = acoustic_label(line)
         elif "spill stores" in line:
             spills = line.split(",")[1].strip()
@@ -627,9 +670,10 @@ def phase_compressible_parity(model) -> list[dict]:
     return entries
 
 
-def phase_compressible_small() -> None:
+def phase_compressible_small(phase: int = 8, **options) -> None:
     """Two bubble steps at 64×32×32 (Δx = 50 m, Δz = 25 m) through the CUDA
-    kernels against the same steps through the plain versions on the CPU.
+    kernels against the same steps through the plain versions on the CPU;
+    ``options`` are ``bubble_model``'s.
 
     The state is :func:`noisy_bubble`'s, so that the momenta are O(1) and
     every term of the step acts on them; from the plain bubble they would
@@ -642,7 +686,7 @@ def phase_compressible_small() -> None:
     for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                           ("cpu", torch.float64)):
         model = bubble.bubble_model((64, 32, 32), dtype=dtype, device=device,
-                                    extent=(3_200.0, 1_600.0, 800.0))
+                                    extent=(3_200.0, 1_600.0, 800.0), **options)
         state = noisy_bubble(model, SEED + 4)
         for _ in range(2):
             state = bt.acoustic_rk3_step(model, state, DT_C)
@@ -657,8 +701,9 @@ def phase_compressible_small() -> None:
         if not err < C_SMALL_LIMIT:
             raise AssertionError(f"64x32x32 bubble after 2 steps, {name}: rel {err:.3e} "
                                  f"(limit {C_SMALL_LIMIT})")
-    print(f"[8/{PHASES}] 64x32x32 noisy bubble, 2 steps, CUDA vs CPU plain float32 "
-          f"(state-relative, limit {C_SMALL_LIMIT}): " + ", ".join(worst))
+    what = " through the K1/K2 pair" if options.get("per_substep_kernels") else ""
+    print(f"[{phase}/{PHASES}] 64x32x32 noisy bubble{what}, 2 steps, CUDA vs CPU plain "
+          f"float32 (state-relative, limit {C_SMALL_LIMIT}): " + ", ".join(worst))
 
 
 def volume_totals(model, state) -> dict:
@@ -669,6 +714,10 @@ def volume_totals(model, state) -> dict:
         w = w * model.terrain.jac_c3.double()
     return {k: float((getattr(state, k).double() * w).sum())
             for k in ("rho", "rho_theta", "rho_qt") if getattr(state, k) is not None}
+
+
+#: ms/step of each compressible path, by its name in phase_compressible_slice
+STEP_MS = {}
 
 
 def phase_compressible_slice(model, state, label: str, phase: int = 9,
@@ -683,17 +732,25 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     momentum.launches = advection.launches = acoustic.launches = columnar.launches = 0
+    acoustic_split.k1_launches = acoustic_split.k2_launches = 0
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state = bt.acoustic_rk3_step(model, state, DT_C)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = {"momentum_div": momentum.launches, "div_rho_u_c": advection.launches,
-              "acoustic_substeps": acoustic.launches, "fix_negative": columnar.launches}
-    # three stages; 3 + 4 + 7 substeps of two launches each; with moisture ρqᵗ
-    # through the scalar kernel once a stage and its repair once a step
+              "acoustic_substeps": acoustic.launches, "fix_negative": columnar.launches,
+              "acoustic_k1": acoustic_split.k1_launches,
+              "acoustic_k2": acoustic_split.k2_launches}
+    # three stages; 3 + 4 + 7 substeps of two launches each, of K3's
+    # counterpart or of the pair; with moisture ρqᵗ through the scalar kernel
+    # once a stage and its repair once a step
+    split = model.acoustic_config.per_substep_kernels
     if counts != {"momentum_div": 3 * STEPS, "div_rho_u_c": (6 if moist else 3) * STEPS,
-                  "acoustic_substeps": 28 * STEPS, "fix_negative": STEPS if moist else 0}:
+                  "acoustic_substeps": 0 if split else 28 * STEPS,
+                  "fix_negative": STEPS if moist else 0,
+                  "acoustic_k1": 14 * STEPS if split else 0,
+                  "acoustic_k2": 14 * STEPS if split else 0}:
         raise AssertionError(f"the compressible path missed its kernels: {counts}")
     for name in C_NAMES + (("rho_qt",) if moist else ()):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -703,7 +760,7 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
     for k, limit in drift_bound.items():
         if not drift[k] < limit:
             raise AssertionError(f"∫{k} dV drifted by {drift[k]:.3e} (bound {limit})")
-    ms = 1e3 * elapsed / STEPS
+    ms = STEP_MS[what] = 1e3 * elapsed / STEPS
     points = SIZE_C[0] * SIZE_C[1] * SIZE_C[2]
     print(f"[{phase}/{PHASES}] 256x256x128 {what}: {ms:.2f} ms/step, "
           f"{points / (ms * 1e-3):.4e} points/s on {label}; launches {counts}; "
@@ -742,11 +799,8 @@ def phase_compressible_breakdown(model, state, label: str, phase: int = 10,
     for beta, (n_tau, dtau) in zip(C.WS_RK3_BETAS, plan):
         aux, caches = timed("diagnose+caches", diagnose)
         G = timed("slow tendencies", lambda: C.stage_slow_tendencies(model, state, aux))
-        pert = timed("acoustic loop", lambda: acoustic.acoustic_substeps(
-            model.acoustic_config, model.z_columns, caches, G,
-            C.stage_perturbations(state_n, state, model.substep_dtype), dtau, n_tau,
-            n_tau > 1, metrics=model.acoustic_metrics,
-            rho_w_L=C.sponge_rho_w_L(model, state)))
+        pert = timed("acoustic loop", lambda: C.acoustic_stage(model, state, state_n, caches,
+                                                                G, n_tau, dtau))
         new = timed("recovery", lambda: C.recover(model, state, pert))
         if model.has_moisture:
             new = timed("scalars", lambda: C.advance_scalars(model, state_n, state, new, pert,
@@ -1090,6 +1144,125 @@ def phase_route_parity(model, state) -> list[dict]:
     return entries
 
 
+def phase_split_parity(device, registers: dict) -> list[dict]:
+    """The K1/K2 pair at 256×256×128 on phase 7's stage: each kernel against
+    its plain version on the stage's first ungated substep (K2 on the plain
+    K1's outputs, so that both see the same inputs), a 7-substep stage
+    through the pair against the plain pair, and the same stage through
+    K3 in turns with the pair (K3, pair, pair, K3); float32 carries, then
+    bfloat16.  One entry per kernel, the float32 instance's numbers with
+    the bfloat16 instance as its variant."""
+    model = bubble.bubble_model(SIZE_C, device=device)
+    g = model.grid
+    points = g.nx * g.ny * g.nz
+    s = noisy_bubble(model, SEED + 2)
+    aux = C.compressible_diagnose(model, s)
+    caches = C.stage_caches(model, s, aux)
+    G = C.slow_tendencies(model, s, aux)
+    del aux, s
+    rng = np.random.default_rng(SEED + 3)
+    noise = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype, device=g.device)
+             for _ in range(5)]
+    noise[3][0] = 0.0
+    zero = torch.zeros_like(noise[0])
+    cfg, cols = model.acoustic_config, model.z_columns
+    n_tau = 7
+    dtau = DT_C / n_tau
+    results, lines = {"acoustic_k1": [], "acoustic_k2": []}, []
+    for store, label in ((torch.float32, ""), (torch.bfloat16, "[bf16]")):
+        carries = tuple(p.to(store) for p in noise)
+        k1_args = (cfg, cols, caches, G, carries, dtau, 1.0)
+        got = acoustic_split.acoustic_k1(*k1_args)
+        torch.cuda.synchronize()
+        k1_ref = acoustic_split.acoustic_k1_plain(*k1_args)
+        # float32 FMA contraction in a pointwise stencil: 1e-5 of each
+        # output's largest value (the carries are read exactly, either type)
+        k1_err = check_rel(f"acoustic_k1{label}", zip(("rho_u", "rho_v", "rho_star",
+                                                        "rho_theta_star"), got, k1_ref), 1e-5)
+        k2_args = (cfg, cols, caches, G.rho_w, carries, k1_ref, dtau)
+        k2_out = acoustic_split.acoustic_k2(*k2_args)
+        torch.cuda.synchronize()
+        # the sweep's two divides against the plain ones and FMA
+        # contraction: 5e-5, the TPU kernel's test's limit; bfloat16 outputs
+        # may round the other way across a rounding boundary: 3e-2
+        limit = 5e-5 if store == torch.float32 else 3e-2
+        pairs = list(zip(C_NAMES, k2_out, acoustic_split.acoustic_k2_plain(*k2_args)))
+        k2_err = check_rel(f"acoustic_k2{label}", pairs, limit)
+        k2_rel = max(rel_to_max(a, b)[1] for _, a, b in pairs)
+        pert = acoustic.Perturbations(*carries, zero, zero, zero)
+        stage = (cfg, cols, caches, G, pert, dtau, n_tau, True)
+        got = acoustic_split.acoustic_substeps_split(*stage)
+        torch.cuda.synchronize()
+        pairs = list(zip(acoustic.Perturbations._fields, got,
+                         acoustic_split.acoustic_substeps_split_plain(*stage)))
+        stage_err = check_rel(f"K1/K2 stage{label}", pairs, limit)
+        stage_rel = max(rel_to_max(a, b)[1] for _, a, b in pairs)
+        del got, pairs
+        times = {"k1": cuda_ms(lambda: acoustic_split.acoustic_k1(*k1_args), 20),
+                 "k2": cuda_ms(lambda: acoustic_split.acoustic_k2(*k2_args), 20),
+                 "k1_plain": cuda_ms(lambda: acoustic_split.acoustic_k1_plain(*k1_args), 3),
+                 "k2_plain": cuda_ms(lambda: acoustic_split.acoustic_k2_plain(*k2_args), 1)}
+        # the A/B in turns: K3, pair, pair, K3
+        k3_fn = lambda: acoustic.acoustic_substeps(*stage)
+        pair_fn = lambda: acoustic_split.acoustic_substeps_split(*stage)
+        ab = [cuda_ms(fn, 5) for fn in (k3_fn, pair_fn, pair_fn, k3_fn)]
+        k3_ms, pair_ms = 0.5 * (ab[0] + ab[3]), 0.5 * (ab[1] + ab[2])
+        k1_inputs = flat(carries, caches.C_L, caches.theta_L, caches.theta_L_zf, G.rho_u,
+                         G.rho_v, G.rho, G.rho_theta, cols.inv_dzc)
+        k2_inputs = flat(k1_ref, carries[0], carries[3], carries[4], G.rho_w, caches.C_L,
+                         caches.theta_L, caches.theta_L_zf, cols.inv_dzc, cols.inv_dzf)
+        stage_ms = {"pair": pair_ms, "k3": k3_ms, "turns": ab,
+                    "pair_per_substep": pair_ms / n_tau, "k3_per_substep": k3_ms / n_tau}
+        for name, err, ms, plain_ms, bnd in (
+                ("acoustic_k1", k1_err, times["k1"], times["k1_plain"],
+                 bound("acoustic_k1", k1_inputs, k1_ref, g.shape, points)),
+                ("acoustic_k2", k2_err, times["k2"], times["k2_plain"],
+                 bound("acoustic_k2", k2_inputs, k2_out, g.shape, points))):
+            results[name].append(dict(case="bf16" if label else "float32", max_abs_err=err,
+                                      ms=ms, plain_ms=plain_ms,
+                                      registers=registers.get(name + label),
+                                      stage_ms=stage_ms, stage_max_abs_err=stage_err,
+                                      **bnd))
+        lines.append(
+            f"{'bfloat16' if label else 'float32'} carries: K1 {times['k1']:.3f} ms (plain "
+            f"{times['k1_plain']:.3f}, bound {results['acoustic_k1'][-1]['bound_ms']:.3f}, "
+            f"max abs err {k1_err:.3e}, {registers.get('acoustic_k1' + label)}), K2 "
+            f"{times['k2']:.3f} ms (plain {times['k2_plain']:.3f}, bound "
+            f"{results['acoustic_k2'][-1]['bound_ms']:.3f}, max abs err {k2_err:.3e}, relative "
+            f"{k2_rel:.2e}, {registers.get('acoustic_k2' + label)}); 7-substep stage max abs "
+            f"err {stage_err:.3e}, relative {stage_rel:.2e} (limit {limit}); stage in turns "
+            "K3/pair/pair/K3 "
+            + "/".join(f"{t:.3f}" for t in ab)
+            + f" ms: pair {pair_ms / n_tau:.3f}, K3 {k3_ms / n_tau:.3f} ms per substep, "
+            f"{14 * pair_ms / n_tau:.2f} and {14 * k3_ms / n_tau:.2f} ms per step")
+        del carries, pert, stage, k1_args, k2_args, k1_ref, k2_out
+    print(f"[23/{PHASES}] the K1/K2 pair at 256x256x128 on phase 7's stage, against its "
+          "plain versions and K3: " + "; ".join(lines))
+    del model, caches, G, noise
+    torch.cuda.empty_cache()
+    entries = []
+    for name, replaces in (("acoustic_k1", "acoustic.py:182"), ("acoustic_k2", "acoustic.py:364")):
+        main, variant = results[name]
+        main.pop("case")
+        entries.append(dict(name=name, route="cuda",
+                            source="breeze_tpu_torch/csrc/acoustic_split.cu",
+                            replaces=f"breeze_tpu/pallas_kernels/{replaces}", **main,
+                            variants=[variant]))
+    return entries
+
+
+def compare_states(what: str, got, ref, limit: float) -> str:
+    """Each field of ``got`` within ``limit`` of ``ref``'s largest value;
+    returns the distances."""
+    parts = []
+    for name in C_NAMES:
+        err, rel = rel_to_max(getattr(got, name), getattr(ref, name))
+        parts.append(f"{name} {rel:.2e}")
+        if not rel < limit:
+            raise AssertionError(f"{what}, {name}: rel {rel:.3e} (limit {limit})")
+    return ", ".join(parts)
+
+
 def main() -> int:
     name, smi = phase_device()
     registers = phase_build()
@@ -1109,6 +1282,7 @@ def main() -> int:
     c_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi)
     phase_compressible_breakdown(model, state, smi)
     counts.update({k: v for k, v in c_counts.items() if k != "fix_negative"})
+    bubble_k3_state = state   # phase 25 holds the split path's state to it
     del model, state
     torch.cuda.empty_cache()
     entries.append(phase_terrain_parity(device, registers))
@@ -1153,6 +1327,29 @@ def main() -> int:
     phase_breakdown(model, state, smi, 22, "bomex_beta step")
     del model, state
     torch.cuda.empty_cache()
+
+    entries += phase_split_parity(device, registers)
+    phase_compressible_small(24, per_substep_kernels=True)
+    for path, (kw, gates) in SPLIT_PATHS.items():
+        model = bubble.bubble_model(SIZE_C, device=device, **kw)
+        what = ("bf16" if path == "bf16_split" else "dry") + " bubble through K1/K2"
+        s_counts, state = phase_compressible_slice(model, bubble.bubble_state(model), smi, 25,
+                                                   what, gates)
+        per_step[path] = {k: v / STEPS for k, v in s_counts.items()}
+        if path == "bubble_split":
+            print(f"[25/{PHASES}] through K3 (phases 9, 17): dry bubble "
+                  f"{STEP_MS['dry bubble']:.2f} ms/step, bf16 bubble {STEP_MS['bf16 bubble']:.2f}"
+                  f" ms/step; the dry split path's state after {WARMUP + STEPS} steps "
+                  f"against the K3 path's (phase 9), each field against its largest value "
+                  f"(limit {SPLIT_VS_K3_LIMIT}): "
+                  + compare_states("split against K3", state, bubble_k3_state,
+                                   SPLIT_VS_K3_LIMIT))
+            phase_compressible_breakdown(model, state, smi, 26, "split bubble")
+            counts["acoustic_k1"] = s_counts["acoustic_k1"]
+            counts["acoustic_k2"] = s_counts["acoustic_k2"]
+        del model, state
+        torch.cuda.empty_cache()
+    del bubble_k3_state
     for kernel in ("momentum_div_cols", "closure"):
         counts[kernel] = per_step["bomex_beta"][kernel] * STEPS
     # the acoustic wrapper counts its instances together; each acoustic entry
@@ -1181,7 +1378,9 @@ def main() -> int:
                         "momentum_div_cols": ("momentum_div_cols",),
                         "closure": ("closure_nu", "closure_tendencies"),
                         "divergence": ("divergence",),
-                        "gradient_correct": ("gradient_correct",)}
+                        "gradient_correct": ("gradient_correct",),
+                        "acoustic_k1": ("acoustic_k1", "acoustic_k1[bf16]"),
+                        "acoustic_k2": ("acoustic_k2", "acoustic_k2[bf16]")}
     for entry in entries:
         kernel = entry["name"]
         entry["launches"] = int(counts[kernel])

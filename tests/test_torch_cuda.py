@@ -18,8 +18,8 @@ from breeze_tpu_torch import fields as fl
 from breeze_tpu_torch import model as TM
 from breeze_tpu_torch.dynamics import compressible as TC
 from breeze_tpu_torch.dynamics import terrain as TT
-from breeze_tpu_torch.kernels import (acoustic, advection, closure, columnar, momentum,
-                                      projection, tendency)
+from breeze_tpu_torch.kernels import (acoustic, acoustic_split, advection, closure, columnar,
+                                      momentum, projection, tendency)
 
 NAMES = ("rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt")
 
@@ -417,6 +417,123 @@ def test_cuda_bubble_step_goes_through_the_kernels(cuda_device):
     assert (momentum.launches - counts[0], advection.launches - counts[1],
             acoustic.launches - counts[2]) == (3, 3, 28)
     for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+
+
+# ---------------------------------------------------------------------------
+# The per-substep acoustic pair K1/K2
+# ---------------------------------------------------------------------------
+
+def _split_stage(size, stretched, device, damping, bf16, seed=14):
+    """The noisy bubble's stage on an (nx, ny, nz) grid: the model, its
+    caches and slow tendencies, and noise 1e-3·N(0, 1) on the five carries
+    (in bfloat16 or float32) and on the three sums."""
+    model, state = _compressible(size, stretched, device, damping)
+    aux = TC.compressible_diagnose(model, state)
+    caches, G = TC.stage_caches(model, state, aux), TC.slow_tendencies(model, state, aux)
+    rng = np.random.default_rng(seed)
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, model.grid.shape), dtype=torch.float32,
+                            device=device) for _ in range(8)]
+    pert[3][0] = 0.0
+    if bf16:
+        pert[:5] = [p.to(torch.bfloat16) for p in pert[:5]]
+    return model, caches, G, acoustic.Perturbations(*pert)
+
+
+SPLIT_CASES = [((64, 32, 32), False, 0.1, False), ((36, 20, 13), True, 0.1, False),
+               ((36, 20, 13), False, 0.0, False), ((64, 32, 32), False, 0.1, True),
+               ((36, 20, 13), True, 0.1, True)]
+SPLIT_IDS = ["blocks_thermal", "ragged_stretched_thermal", "ragged_none",
+             "blocks_thermal_bf16", "ragged_stretched_thermal_bf16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,damping,bf16", SPLIT_CASES, ids=SPLIT_IDS)
+@pytest.mark.parametrize("pgf", [1.0, 0.0], ids=["pgf", "gated"])
+def test_cuda_acoustic_k1_matches_plain(cuda_device, size, stretched, damping, bf16, pgf):
+    model, caches, G, pert = _split_stage(size, stretched, cuda_device, damping, bf16)
+    carries = tuple(pert[:5])
+    kept = [p.clone() for p in carries]
+    args = (model.acoustic_config, model.z_columns, caches, G, carries, 0.5 / 7, pgf)
+    before = acoustic_split.k1_launches
+    got = acoustic_split.acoustic_k1(*args)
+    torch.cuda.synchronize()
+    assert acoustic_split.k1_launches == before + 1
+    for name, p, k in zip(acoustic.Perturbations._fields, carries, kept):
+        assert torch.equal(p, k), f"K1 wrote its input {name}"
+    for name, g, r in zip(("rho_u", "rho_v", "rho_star", "rho_theta_star"), got,
+                          acoustic_split.acoustic_k1_plain(*args)):
+        assert g.dtype == torch.float32, name
+        # float32 FMA contraction in a pointwise stencil: 1e-5 of the
+        # largest value
+        assert _rel_to_max(g, r) < 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,damping,bf16", SPLIT_CASES, ids=SPLIT_IDS)
+def test_cuda_acoustic_k2_matches_plain(cuda_device, size, stretched, damping, bf16):
+    """K2 on the plain K1's outputs, so that both versions see the same
+    inputs."""
+    model, caches, G, pert = _split_stage(size, stretched, cuda_device, damping, bf16)
+    cfg, cols, dtau = model.acoustic_config, model.z_columns, 0.5 / 7
+    carries = tuple(pert[:5])
+    k1 = acoustic_split.acoustic_k1_plain(cfg, cols, caches, G, carries, dtau, 1.0)
+    kept = [p.clone() for p in (*carries, *k1)]
+    args = (cfg, cols, caches, G.rho_w, carries, k1, dtau)
+    before = acoustic_split.k2_launches
+    got = acoustic_split.acoustic_k2(*args)
+    torch.cuda.synchronize()
+    assert acoustic_split.k2_launches == before + 1
+    for p, k in zip((*carries, *k1), kept):
+        assert torch.equal(p, k), "K2 wrote an input"
+    for name, g, r in zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta"), got,
+                          acoustic_split.acoustic_k2_plain(*args)):
+        assert g.dtype == r.dtype == pert.rho.dtype, name
+        # the sweep's two divides and FMA contraction: 5e-5 of the largest
+        # value, the TPU kernel's test's limit; bfloat16 outputs may round the
+        # other way where the two float32 results straddle a boundary: 3e-2
+        assert _rel_to_max(g, r) < (3e-2 if bf16 else 5e-5), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,stretched,damping,bf16", SPLIT_CASES, ids=SPLIT_IDS)
+def test_cuda_acoustic_split_stage_matches_plain(cuda_device, size, stretched, damping,
+                                                 bf16):
+    """A 7-substep stage through the pair against the plain pair, the
+    sums included; the caller's tensors are left as they were."""
+    model, caches, G, pert = _split_stage(size, stretched, cuda_device, damping, bf16)
+    kept = [p.clone() for p in pert]
+    args = (model.acoustic_config, model.z_columns, caches, G, pert, 0.5 / 7, 7, True)
+    before = (acoustic_split.k1_launches, acoustic_split.k2_launches, acoustic.launches)
+    got = acoustic_split.acoustic_substeps_split(*args)
+    torch.cuda.synchronize()
+    assert (acoustic_split.k1_launches, acoustic_split.k2_launches, acoustic.launches) == (
+        before[0] + 7, before[1] + 7, before[2])
+    for name, p, k in zip(acoustic.Perturbations._fields, pert, kept):
+        assert torch.equal(p, k), f"the stage wrote its input {name}"
+    for name, g, r in zip(acoustic.Perturbations._fields, got,
+                          acoustic_split.acoustic_substeps_split_plain(*args)):
+        assert g.dtype == r.dtype, name
+        assert _rel_to_max(g, r) < (3e-2 if bf16 else 5e-5), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floattype", [None, "bfloat16"], ids=["float32", "bf16"])
+def test_cuda_split_bubble_step_goes_through_the_pair(cuda_device, floattype):
+    model = bubble.bubble_model((64, 32, 32), device=cuda_device,
+                                extent=(3_200.0, 1_600.0, 800.0), substep_floattype=floattype,
+                                per_substep_kernels=True)
+    state = bubble.bubble_state(model)
+    counts = (momentum.launches, advection.launches, acoustic.launches,
+              acoustic_split.k1_launches, acoustic_split.k2_launches)
+    state = bt.acoustic_rk3_step(model, state, 0.5)
+    torch.cuda.synchronize()
+    # three stages; 3 + 4 + 7 substeps of one K1 and one K2 each, no K3
+    assert (momentum.launches - counts[0], advection.launches - counts[1],
+            acoustic.launches - counts[2], acoustic_split.k1_launches - counts[3],
+            acoustic_split.k2_launches - counts[4]) == (3, 3, 0, 14, 14)
+    for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
+        assert getattr(state, name).dtype == torch.float32, name
         assert bool(torch.isfinite(getattr(state, name)).all()), name
 
 

@@ -14,7 +14,6 @@
 The CUDA kernels against their plain versions are in ``test_torch_cuda.py``.
 """
 
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -63,12 +62,12 @@ def _stage_pair(jax_model, torch_model, dtype, interpret):
     ts = convert.state_from_numpy(tp.to_numpy(js), dtype=dtype, device="cpu")
     ts0 = convert.state_from_numpy(tp.to_numpy(js0), dtype=dtype, device="cpu")
     aux = JM.diagnose(jax_model, js, T_guess=js.diagnostics.get("T_warm"))
-    if interpret:
-        os.environ["BREEZE_TPU_PALLAS_INTERPRET"] = "1"
-    try:
+    # monkeypatch puts back whatever the variable held before, so that no
+    # later test on the same worker sees this one's setting
+    with pytest.MonkeyPatch.context() as mp:
+        if interpret:
+            mp.setenv("BREEZE_TPU_PALLAS_INTERPRET", "1")
         ref = JM.stage_update(jax_model, js, js0, DT, ALPHA, aux=aux)
-    finally:
-        os.environ.pop("BREEZE_TPU_PALLAS_INTERPRET", None)
     taux = TM.diagnose(torch_model, ts, T_guess=ts.diagnostics.get("T_warm"))
     got = TM.stage_update(torch_model, ts, ts0, DT, ALPHA, aux=taux)
     return got, ref
