@@ -6,9 +6,15 @@
 // The plain PyTorch side of the same arithmetic is
 // breeze_tpu_torch/kernels/closure.py::closure_tendencies_plain.
 //
+// The formulas read their fields through accessors A(k, j, i) in interior
+// coordinates: Win (a padded window in device memory, closure.cu) or the
+// fused kernel's shared-memory planes (tendency.cu), so both kernels
+// evaluate one set of expressions.
+//
 // Layout as weno.cuh: windows padded by HALO in z and y, x periodic; the
-// columns are padded by HALO too.  ν is stored unpadded (nz, ny, nx); its
-// z-wall mirror (row -1 ← row 0, row nz ← row nz-1) is a clamp of the level.
+// columns are padded by HALO too.  closure.cu stores ν unpadded (nz, ny,
+// nx); its z-wall mirror (row -1 ← row 0, row nz ← row nz-1) is a clamp of
+// the level.
 
 #pragma once
 
@@ -19,8 +25,9 @@ namespace {
 // ν = (CΔ)²|S|ς at center (k, j, i): the six strains, |S|² with the
 // off-diagonals averaged to centers, and with buoy_corr Lilly's ς from the
 // θᵥ window TB.  izc, izf are the closure's padded 1/Δz columns, cd2 (CΔ)².
-__device__ __forceinline__ float smagorinsky_nu(const Win& U, const Win& V, const Win& W,
-                                                const Win& TB, const Col& izc, const Col& izf,
+template <class A, class AT>
+__device__ __forceinline__ float smagorinsky_nu(const A& U, const A& V, const A& W,
+                                                const AT& TB, const Col& izc, const Col& izf,
                                                 const Col& cd2, int k, int j, int i, int nz,
                                                 float idx, float idy, int buoy_corr,
                                                 float g_acc, float prandtl) {
@@ -58,18 +65,14 @@ __device__ __forceinline__ float smagorinsky_nu(const Win& U, const Win& V, cons
 
 // Adds the closure's tendencies at (k, j, i) to g: the stress divergences
 // to g[0] (u at xf), g[1] (v at yf), g[2] (w at zf), the diffusive flux
-// divergences of the K scalar windows scal[0..K) to g[3..3+K).  colc and
-// colf are the padded reference densities at centers and faces.
-__device__ __forceinline__ void smagorinsky_tendencies(
-    const Win& U, const Win& V, const Win& W, const float* const scal[2], int K,
-    const float* nu, const Col& colc, const Col& colf, const Col& izc_e, const Col& izf_e,
-    int k, int j, int i, int nz, int ny, int nx, float idx, float idy, float inv_prandtl,
-    float g[5]) {
-  const int nyp = ny + 2 * HALO;
-  auto NU = [&](int kk, int jj, int ii) {   // z clamped = the wall mirror
-    kk = kk < 0 ? 0 : (kk > nz - 1 ? nz - 1 : kk);
-    return __ldg(nu + ((size_t)kk * ny + wrap(jj, ny)) * nx + wrap(ii, nx));
-  };
+// divergences of the K scalars scal(0..K) to g[3..3+K).  NU(k, j, i) gives
+// ν at centers k-1..k+1, mirrored at the z walls; colc and colf are the
+// padded reference densities at centers and faces.
+template <class A, class SC, class NUF>
+__device__ __forceinline__ void smagorinsky_divergences(
+    const A& U, const A& V, const A& W, const SC& scal, int K, const NUF& NU,
+    const Col& colc, const Col& colf, const Col& izc_e, const Col& izf_e,
+    int k, int j, int i, float idx, float idy, float inv_prandtl, float g[5]) {
   auto KAP = [&](int kk, int jj, int ii) { return NU(kk, jj, ii) * inv_prandtl; };
   auto S11 = [&](int kk, int jj, int ii) { return (U(kk, jj, ii + 1) - U(kk, jj, ii)) * idx; };
   auto S22 = [&](int kk, int jj, int ii) { return (V(kk, jj + 1, ii) - V(kk, jj, ii)) * idy; };
@@ -108,8 +111,10 @@ __device__ __forceinline__ void smagorinsky_tendencies(
                   + (T23(k + 1, j) - T23(k, j)) * ize);
   g[2] = g[2] + -((T13(k, i + 1) - T13(k, i)) * idx + (T23(k, j + 1) - T23(k, j)) * idy
                   + (T33(k) - T33(k - 1)) * ife);
-  for (int s = 0; s < K; ++s) {
-    const Win C{scal[s], nyp, nx};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (s >= K) break;
+    const auto C = scal(s);
     auto Fz = [&](int kf) {
       return colf(kf) * 0.5f * (KAP(kf - 1, j, i) + KAP(kf, j, i))
              * (C(kf, j, i) - C(kf - 1, j, i)) * izf_e(kf);
@@ -125,6 +130,23 @@ __device__ __forceinline__ void smagorinsky_tendencies(
     g[3 + s] = g[3 + s] + ((Fx(i + 1) - Fx(i)) * idx + (Fy(j + 1) - Fy(j)) * idy
                            + (Fz(k + 1) - Fz(k)) * ize);
   }
+}
+
+// smagorinsky_divergences on the padded windows of scal[0..K) and on ν
+// stored unpadded (nz, ny, nx) in device memory (the closure kernel).
+__device__ __forceinline__ void smagorinsky_tendencies(
+    const Win& U, const Win& V, const Win& W, const float* const scal[2], int K,
+    const float* nu, const Col& colc, const Col& colf, const Col& izc_e, const Col& izf_e,
+    int k, int j, int i, int nz, int ny, int nx, float idx, float idy, float inv_prandtl,
+    float g[5]) {
+  const int nyp = ny + 2 * HALO;
+  auto NU = [&](int kk, int jj, int ii) {   // z clamped = the wall mirror
+    kk = kk < 0 ? 0 : (kk > nz - 1 ? nz - 1 : kk);
+    return __ldg(nu + ((size_t)kk * ny + wrap(jj, ny)) * nx + wrap(ii, nx));
+  };
+  auto C = [&](int s) { return Win{scal[s], nyp, nx}; };
+  smagorinsky_divergences(U, V, W, C, K, NU, colc, colf, izc_e, izf_e, k, j, i, idx, idy,
+                          inv_prandtl, g);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // Fused anelastic stage for sm_90a: WENO5 momentum and scalar advection,
 // FPlane Coriolis, buoyancy, the Smagorinsky-Lilly epilogue, column-linear
-// forcings and the SSP-RK3 blend, one thread per output point.
+// forcings and the SSP-RK3 blend, in one launch.
 //
 // Replaces breeze_tpu/pallas_kernels/tendency.py::fused_tendency_pallas
 // (with closure.py::_smag_block).  The Python wrapper and the plain PyTorch
@@ -8,17 +8,53 @@
 //
 // Layout: fields are (z, y, x) float32 with x contiguous.  The windows u, v,
 // w, theta, qt, b, thb are padded by HALO in z and y (z walls by mirror /
-// odd reflection, y periodic); x is unpadded and indexed modulo nx.
+// odd reflection, y periodic); x is unpadded and periodic.
 //
-// Bound: arithmetic (about thirty WENO5 reconstructions and the closure per
-// point against ~17 fields of traffic).  Pass 1 writes the eddy viscosity nu
-// at centers; pass 2 reads it (z clamped = the wall mirror) and writes the
-// 3+K blended prognostics.  The closure's device code is smagorinsky.cuh,
-// which the closure kernel (closure.cu) shares.
+// Bound: float32 operations.  Each output point needs 9 momentum and K
+// scalar WENO5 face fluxes (each ~75 operations with its mass flux), ν and
+// the closure (~390), ~1600 operations against ~17 fields of traffic: 0.40
+// ms at 67 TFLOP/s against 0.27 ms of bytes at 256³.
+//
+// Design: 2.5-D blocking.  A block of 512 threads owns a TX × TY = 32 × 16
+// tile of columns, one thread a column, and marches up a chunk of levels (the
+// wrapper's z chunk):
+// - a ring of NSLOT = 7 planes per field (levels k-3 .. k+3, the tile plus
+//   its 3-point halo, x wrapped at the domain edge) sits in shared memory;
+//   the plane of level k+4 is copied in with cp.async into the slot of
+//   level k-3 while level k computes, and the blend's inputs (s, s⁰, b) are
+//   read at the start of the level so that their latency hides too;
+// - each x and y face flux of the level is computed once, by one thread, into
+//   shared memory, and every output point takes differences of stored
+//   fluxes.  The tile's one extra face per row and column goes to its own
+//   warp per field (warp f the y-faces, warp 3+K+f the x-faces), and the
+//   second round of the ν halo to the last warps, so that no warp carries
+//   two extra pieces of work into the barrier;
+// - the z face flux is carried in a register from level k to level k+1 (and
+//   seeded at the chunk's first level), so each face is reconstructed once:
+//   9 + 3K reconstructions per point, 15 with K = 2;
+// - ν is computed one level ahead for the tile plus a 1-point halo into a
+//   ring of three ν planes in shared memory (its z-wall mirror: the ring
+//   holds ν of the clamped level), so the epilogue reads ν at k-1..k+1
+//   without a second launch or a round trip through device memory;
+// - ρᵣ multiplies each value as the mass flux of a face is formed.
+// What holds it back: instruction issue and its latency.  The ~169 KB of
+// shared memory (BOMEX) fits one block, 16 warps, per SM; the closure's
+// stresses are still evaluated per output point (each T twice, as the
+// reference's block does); a level has two barriers.
+// The closure's device code is smagorinsky.cuh, which the closure kernel
+// (closure.cu) shares.
 
 #include "smagorinsky.cuh"
 
 namespace {
+
+constexpr int TX = 32, TY = 16, NT = TX * TY;
+// one warp a tile row; warps enough for one extra face of each field in x and y
+static_assert(TX == 32 && TY >= 10, "the extra faces take a warp each");
+constexpr int PW = TX + 2 * HALO, PLANE = PW * (TY + 2 * HALO);  // a field's plane
+constexpr int NSLOT = 7;                                          // levels k-3 .. k+3
+constexpr int NW = TX + 2, NUPLANE = NW * (TY + 2);               // ν with a 1-point halo
+constexpr int XF = TY * (TX + 1), YF = (TY + 1) * TX;             // face fluxes a level
 
 struct TendArgs {
   const float *u, *v, *w, *th, *qt, *b, *thb;
@@ -27,102 +63,401 @@ struct TendArgs {
   const float *fadd[5], *fdamp[5];
   const float *cur[5], *prev[5];
   float *out[5];
-  float *nu;
-  int nz, ny, nx, K, has_cor, has_clo, buoy_corr;
+  int nz, ny, nx, K, has_cor, has_clo, buoy_corr, zchunk;
   float inv_dx, inv_dy, f_cor, prandtl, inv_prandtl, g_acc, alpha, dt, oma;
 };
 
-// ---- pass 1: eddy viscosity at centers -----------------------------------
-__global__ void __launch_bounds__(256) smagorinsky_nu_kernel(TendArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
-  if (i >= a.nx || j >= a.ny) return;
-  const int nyp = a.ny + 2 * HALO;
-  const Win U{a.u, nyp, a.nx}, V{a.v, nyp, a.nx}, W{a.w, nyp, a.nx}, TB{a.thb, nyp, a.nx};
-  const Col izc{a.invdzc_e}, izf{a.invdzf_e}, cd2{a.cd2_e};
-  a.nu[((size_t)k * a.ny + j) * a.nx + i] = smagorinsky_nu(
-      U, V, W, TB, izc, izf, cd2, k, j, i, a.nz, a.inv_dx, a.inv_dy, a.buoy_corr, a.g_acc,
-      a.prandtl);
+// The shared-memory fields: u, v, w, the K scalars, and θᵥ where Lilly's
+// correction reads a window other than θ.
+struct Layout {
+  int nf, tb;              // fields in the ring; the field index of θᵥ
+  int nu, flux, floats;    // float offsets of the ν ring and the fluxes; the total
+};
+
+__host__ __device__ inline Layout layout(int K, int has_clo, int tb_distinct) {
+  Layout l;
+  l.nf = 3 + K + (has_clo && tb_distinct ? 1 : 0);
+  l.tb = has_clo && tb_distinct ? 3 + K : 3;
+  l.nu = l.nf * NSLOT * PLANE;
+  l.flux = l.nu + (has_clo ? 3 * NUPLANE : 0);
+  l.floats = l.flux + (3 + K) * (XF + YF);
+  return l;
 }
 
-// ---- pass 2: tendencies and the blend --------------------------------------
-__global__ void __launch_bounds__(256) fused_tendency_kernel(TendArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int k = blockIdx.z;
-  if (i >= a.nx || j >= a.ny) return;
-  const int nx = a.nx, ny = a.ny, nz = a.nz, nyp = ny + 2 * HALO;
-  const Win U{a.u, nyp, nx}, V{a.v, nyp, nx}, W{a.w, nyp, nx}, B{a.b, nyp, nx};
-  const Col colc{a.colc}, colf{a.colf};
-  const float idx = a.inv_dx, idy = a.inv_dy;
-  const float izc = __ldg(a.invdzc + k), izf = __ldg(a.invdzf + k);
+__device__ __forceinline__ int slot7(int s) {
+  return s < 0 ? s + NSLOT : (s >= NSLOT ? s - NSLOT : s);
+}
 
-  auto RU = [&](int kk, int jj, int ii) { return U(kk, jj, ii) * colc(kk); };
-  auto RV = [&](int kk, int jj, int ii) { return V(kk, jj, ii) * colc(kk); };
-  auto RW = [&](int kk, int jj, int ii) { return W(kk, jj, ii) * colf(kk); };
-  float du, dv, dw;
-  momentum_divs(RU, RV, RW, U, V, W, k, j, i, idx, idy, izc, izf, du, dv, dw);
-
-  float g[5];
-  g[0] = -du;
-  g[1] = -dv;
-  if (a.has_cor) {
-    const float rv_u = 0.25f * (RV(k, j, i) + RV(k, j + 1, i) + RV(k, j, i - 1) + RV(k, j + 1, i - 1));
-    const float ru_v = 0.25f * (RU(k, j, i) + RU(k, j, i + 1) + RU(k, j - 1, i) + RU(k, j - 1, i + 1));
-    g[0] = g[0] + a.f_cor * rv_u;
-    g[1] = g[1] - a.f_cor * ru_v;
+// A field's ring of planes seen from (k, j, i): p is the field's slot 0 at
+// (j, i), sk the slot of level k; reads levels k-3 .. k+3.
+struct Ring {
+  const float* p;
+  int k, j, i, sk;
+  __device__ __forceinline__ float operator()(int kk, int jj, int ii) const {
+    return p[slot7(sk + (kk - k)) * PLANE + (jj - j) * PW + (ii - i)];
   }
-  g[2] = -dw + 0.5f * (B(k - 1, j, i) + B(k, j, i));
+};
 
-  // ---- scalars: shared mass fluxes, max-normalized weights ----------------
+// The ring of three ν planes seen from (k, j, i); s3 is the slot of level k.
+struct NuRing {
+  const float* p;
+  int k, j, i, s3;
+  __device__ __forceinline__ float operator()(int kk, int jj, int ii) const {
+    int s = s3 + (kk - k);
+    s = s < 0 ? s + 3 : (s >= 3 ? s - 3 : s);
+    return p[s * NUPLANE + (jj - j) * NW + (ii - i)];
+  }
+};
+
+struct Tile {
+  const float* sm;
+  int i0, j0;
+  __device__ __forceinline__ Ring ring(int f, int k, int sk, int j, int i) const {
+    return Ring{sm + f * NSLOT * PLANE + (j - j0 + HALO) * PW + (i - i0 + HALO), k, j, i, sk};
+  }
+};
+
+// weno_sel without a branch: the upwind cells are selected first, so a warp
+// whose faces differ in sign runs one reconstruction, not both (the same
+// arithmetic on the same cells; 2.10 against 2.16 ms a 256³ stage on an
+// H100, PERF.md).
+template <bool NORM>
+__device__ __forceinline__ float weno_up(const float c[6], float sign) {
+  const bool up = sign >= 0.0f;
+  return weno5<NORM>(up ? c[0] : c[5], up ? c[1] : c[4], up ? c[2] : c[3], up ? c[3] : c[2],
+                     up ? c[4] : c[1]);
+}
+
+// ---- face fluxes (weno.cuh's momentum_divs, one face each) ----------------
+// ck, ckm: ρᵣ at centers k and k-1.  x: on row j of level k, at x-center c
+// (u) or x-face x (the others); y: on column i, at y-face y or y-center c (v).
+__device__ __forceinline__ float flux_xu(const Ring& U, int k, int j, int c, float ck) {
   float q[6];
-  const float* scal[2] = {a.th, a.qt};
-  for (int s = 0; s < a.K; ++s) {
-    const Win C{scal[s], nyp, nx};
-    auto fc_x = [&](int xf) {
-      float mf = RU(k, j, xf);
-      for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, j, xf + o - 1);
-      return mf * weno_sel<true>(q, mf);
-    };
-    auto fc_y = [&](int yf) {
-      float mf = RV(k, yf, i);
-      for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, yf + o - 1, i);
-      return mf * weno_sel<true>(q, mf);
-    };
-    auto fc_z = [&](int kf) {
-      float mf = 0.5f * (colc(kf - 1) + colc(kf)) * W(kf, j, i);
-      for (int o = -2; o <= 3; ++o) q[o + 2] = C(kf + o - 1, j, i);
-      return mf * weno_sel<true>(q, mf);
-    };
-    float acc = (fc_x(i + 1) - fc_x(i)) * idx;
-    acc = acc + (fc_y(j + 1) - fc_y(j)) * idy;
-    acc = acc + (fc_z(k + 1) - fc_z(k)) * izc;
-    g[3 + s] = -acc;
-  }
+  const float mf = 0.5f * (U(k, j, c) * ck + U(k, j, c + 1) * ck);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, j, c + o);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_xv(const Ring& U, const Ring& V, int k, int j, int x,
+                                         float ck) {
+  float q[6];
+  const float mf = 0.5f * (U(k, j, x) * ck + U(k, j - 1, x) * ck);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, j, x + o - 1);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_xw(const Ring& U, const Ring& W, int k, int j, int x,
+                                         float ck, float ckm) {
+  float q[6];
+  const float mf = 0.5f * (U(k, j, x) * ck + U(k - 1, j, x) * ckm);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, j, x + o - 1);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_xc(const Ring& U, const Ring& C, int k, int j, int x,
+                                         float ck) {
+  float q[6];
+  const float mf = U(k, j, x) * ck;
+  for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, j, x + o - 1);
+  return mf * weno_up<true>(q, mf);
+}
+__device__ __forceinline__ float flux_yu(const Ring& U, const Ring& V, int k, int y, int i,
+                                         float ck) {
+  float q[6];
+  const float mf = 0.5f * (V(k, y, i) * ck + V(k, y, i - 1) * ck);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, y + o - 1, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_yv(const Ring& V, int k, int c, int i, float ck) {
+  float q[6];
+  const float mf = 0.5f * (V(k, c, i) * ck + V(k, c + 1, i) * ck);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, c + o, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_yw(const Ring& V, const Ring& W, int k, int y, int i,
+                                         float ck, float ckm) {
+  float q[6];
+  const float mf = 0.5f * (V(k, y, i) * ck + V(k - 1, y, i) * ckm);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, y + o - 1, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_yc(const Ring& V, const Ring& C, int k, int y, int i,
+                                         float ck) {
+  float q[6];
+  const float mf = V(k, y, i) * ck;
+  for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, y + o - 1, i);
+  return mf * weno_up<true>(q, mf);
+}
+// z, on the thread's own column: u and v at face kf, w at center c, the
+// scalars at face kf (ρᵣ at faces colf, at centers colc).
+__device__ __forceinline__ float flux_zu(const Ring& U, const Ring& W, int kf, int j, int i,
+                                         float cf) {
+  float q[6];
+  const float mf = 0.5f * (W(kf, j, i) * cf + W(kf, j, i - 1) * cf);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = U(kf + o - 1, j, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_zv(const Ring& V, const Ring& W, int kf, int j, int i,
+                                         float cf) {
+  float q[6];
+  const float mf = 0.5f * (W(kf, j, i) * cf + W(kf, j - 1, i) * cf);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = V(kf + o - 1, j, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_zw(const Ring& W, int c, int j, int i, float cf0,
+                                         float cf1) {
+  float q[6];
+  const float mf = 0.5f * (W(c, j, i) * cf0 + W(c + 1, j, i) * cf1);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = W(c + o, j, i);
+  return mf * weno_up<false>(q, mf);
+}
+__device__ __forceinline__ float flux_zc(const Ring& W, const Ring& C, int kf, int j, int i,
+                                         float cc0, float cc1) {
+  float q[6];
+  const float mf = 0.5f * (cc0 + cc1) * W(kf, j, i);
+  for (int o = -2; o <= 3; ++o) q[o + 2] = C(kf + o - 1, j, i);
+  return mf * weno_up<true>(q, mf);
+}
 
-  // ---- Smagorinsky-Lilly epilogue ----------------------------------------
-  if (a.has_clo) {
-    const Col izc_e{a.invdzc_e}, izf_e{a.invdzf_e};
-    smagorinsky_tendencies(U, V, W, scal, a.K, a.nu, colc, colf, izc_e, izf_e, k, j, i,
-                           nz, ny, nx, idx, idy, a.inv_prandtl, g);
-  }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  // ---- forcing columns and the SSP-RK3 blend ------------------------------
-  const size_t p = ((size_t)k * ny + j) * nx + i;
-  const float rho_field[3] = {RU(k, j, i), RV(k, j, i), RW(k, j, i)};
-  for (int n = 0; n < 3 + a.K; ++n) {
-    float gn = g[n];
-    if (a.fadd[n]) gn = gn + __ldg(a.fadd[n] + k);
-    if (a.fdamp[n]) {
-      if (n < 3) {
-        gn = gn - __ldg(a.fdamp[n] + k) * rho_field[n];
-      } else {
-        gn = gn - __ldg(a.fdamp[n] + k) * Win{scal[n - 3], nyp, nx}(k, j, i) * colc(k);
+// Issue the copies of level kk's planes (the tile's nyt+6 rows and nxt+6
+// columns; x wrapped, y and z from the windows' pads) into their slot.
+__device__ __forceinline__ void load_level(const TendArgs& a, const Layout& l, float* sm,
+                                           int kk, int i0, int j0, int nxt, int nyt) {
+  const int nxl = nxt + 2 * HALO, n = nxl * (nyt + 2 * HALO);
+  const int nyp = a.ny + 2 * HALO;
+  float* dst0 = sm + (kk + 3 * NSLOT) % NSLOT * PLANE;
+  for (int e = threadIdx.y * TX + threadIdx.x; e < n; e += NT) {
+    const int r = e / nxl, c = e - r * nxl;
+    const size_t off =
+        ((size_t)(kk + HALO) * nyp + (j0 + r)) * a.nx + wrap(i0 - HALO + c, a.nx);
+    float* dst = dst0 + r * PW + c;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      if (f < l.nf) {
+        const float* s = f == 0 ? a.u : f == 1 ? a.v : f == 2 ? a.w : f == 3 ? a.th
+                         : f == 4 && a.K == 2 ? a.qt : a.thb;
+        cp_async4(dst + f * NSLOT * PLANE, s + off);
       }
     }
-    a.out[n][p] = a.oma * __ldg(a.prev[n] + p) + a.alpha * (__ldg(a.cur[n] + p) + a.dt * gn);
   }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(NT, 1) fused_tendency_kernel(TendArgs a) {
+  extern __shared__ float sm[];
+  const int K = a.K, nx = a.nx, ny = a.ny, nz = a.nz, nyp = ny + 2 * HALO;
+  const int ti = threadIdx.x, tj = threadIdx.y, tid = tj * TX + ti;
+  const int i0 = blockIdx.x * TX, j0 = blockIdx.y * TY;
+  const int k0 = blockIdx.z * a.zchunk, k1 = min(k0 + a.zchunk, nz);
+  const int nxt = min(TX, nx - i0), nyt = min(TY, ny - j0);
+  const int i = i0 + ti, j = j0 + tj;
+  const bool valid = ti < nxt && tj < nyt;
+  const Layout l = layout(K, a.has_clo, a.thb != a.th);
+  const Tile t{sm, i0, j0};
+  float* nus = sm + l.nu;
+  float* FX = sm + l.flux;              // (3+K) × TY × (TX+1)
+  float* FY = FX + (3 + K) * XF;        // (3+K) × (TY+1) × TX
+  const Col colc{a.colc}, colf{a.colf}, izc_e{a.invdzc_e}, izf_e{a.invdzf_e}, cd2{a.cd2_e};
+  const Win B{a.b, nyp, nx};
+  const float idx = a.inv_dx, idy = a.inv_dy;
+
+  // ν at level kk (clamped: the wall mirror) for the tile and its 1-point
+  // halo into ν slot s3
+  auto nu_level = [&](int kk, int s3) {
+    const int kc = kk < 0 ? 0 : (kk > nz - 1 ? nz - 1 : kk);
+    const int skc = kc % NSLOT, w = nxt + 2;
+    const int n = (nyt + 2) * w;
+    for (int round = 0; round * NT < n; ++round) {
+      // later rounds from the last warp down: the first warps take the extra faces
+      const int p = round * NT + (round == 0 ? tid : NT - 1 - tid);
+      if (p >= n) continue;
+      const int r = p / w, c = p - r * w, jj = j0 - 1 + r, ii = i0 - 1 + c;
+      const Ring U = t.ring(0, kc, skc, jj, ii), V = t.ring(1, kc, skc, jj, ii),
+                 W = t.ring(2, kc, skc, jj, ii), TB = t.ring(l.tb, kc, skc, jj, ii);
+      nus[s3 * NUPLANE + r * NW + c] = smagorinsky_nu(
+          U, V, W, TB, izc_e, izf_e, cd2, kc, jj, ii, nz, idx, idy, a.buoy_corr, a.g_acc,
+          a.prandtl);
+    }
+  };
+
+  // ---- the chunk's first planes, ν below it and the z-flux carries --------
+  for (int kk = k0 - 3; kk <= k0 + 3; ++kk) load_level(a, l, sm, kk, i0, j0, nxt, nyt);
+  cp_async_wait_all();
+  __syncthreads();
+  int sk = k0 % NSLOT, s3 = k0 % 3;
+  if (a.has_clo) {
+    nu_level(k0 - 1, (s3 + 2) % 3);
+    nu_level(k0, s3);
+  }
+  float cu = 0.0f, cv = 0.0f, cw = 0.0f, cc[2] = {0.0f, 0.0f}, bprev = 0.0f;
+  if (valid) {
+    const Ring U = t.ring(0, k0, sk, j, i), V = t.ring(1, k0, sk, j, i),
+               W = t.ring(2, k0, sk, j, i);
+    cu = flux_zu(U, W, k0, j, i, colf(k0));
+    cv = flux_zv(V, W, k0, j, i, colf(k0));
+    cw = flux_zw(W, k0 - 1, j, i, colf(k0 - 1), colf(k0));
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      if (s < K)
+        cc[s] = flux_zc(W, t.ring(3 + s, k0, sk, j, i), k0, j, i, colc(k0 - 1), colc(k0));
+    bprev = B(k0 - 1, j, i);
+  }
+  __syncthreads();   // slot k0-3 is free for level k0+4
+
+  for (int k = k0; k < k1; ++k) {
+    if (k + 4 <= k1 + 2) load_level(a, l, sm, k + 4, i0, j0, nxt, nyt);
+    // the blend's inputs, read now so that their latency hides under the fluxes
+    const size_t p = ((size_t)k * ny + j) * nx + i;
+    float cur[5], prev[5], bk = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 5; ++n) {
+      if (valid && n < 3 + K) {
+        cur[n] = __ldg(a.cur[n] + p);
+        prev[n] = __ldg(a.prev[n] + p);
+      }
+    }
+    if (valid) bk = B(k, j, i);
+    const float ck = colc(k), ckm = colc(k - 1);
+    if (a.has_clo) nu_level(k + 1, s3 == 2 ? 0 : s3 + 1);
+
+    // ---- x and y face fluxes, each once: the thread's own ... ------------
+    float fzu = 0.0f, fzv = 0.0f, fzw = 0.0f, fzc[2] = {0.0f, 0.0f};
+    if (valid) {
+      const Ring U = t.ring(0, k, sk, j, i), V = t.ring(1, k, sk, j, i),
+                 W = t.ring(2, k, sk, j, i);
+      FX[0 * XF + tj * (TX + 1) + ti + 1] = flux_xu(U, k, j, i, ck);
+      FX[1 * XF + tj * (TX + 1) + ti] = flux_xv(U, V, k, j, i, ck);
+      FX[2 * XF + tj * (TX + 1) + ti] = flux_xw(U, W, k, j, i, ck, ckm);
+      FY[0 * YF + tj * TX + ti] = flux_yu(U, V, k, j, i, ck);
+      FY[1 * YF + (tj + 1) * TX + ti] = flux_yv(V, k, j, i, ck);
+      FY[2 * YF + tj * TX + ti] = flux_yw(V, W, k, j, i, ck, ckm);
+      fzu = flux_zu(U, W, k + 1, j, i, colf(k + 1));
+      fzv = flux_zv(V, W, k + 1, j, i, colf(k + 1));
+      fzw = flux_zw(W, k, j, i, colf(k), colf(k + 1));
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s < K) {
+          const Ring C = t.ring(3 + s, k, sk, j, i);
+          FX[(3 + s) * XF + tj * (TX + 1) + ti] = flux_xc(U, C, k, j, i, ck);
+          FY[(3 + s) * YF + tj * TX + ti] = flux_yc(V, C, k, j, i, ck);
+          fzc[s] = flux_zc(W, C, k + 1, j, i, colc(k), colc(k + 1));
+        }
+      }
+    }
+    // ... and the extra face each row and column needs: warp f < 3+K takes
+    // field f's y-face past the tile's last row (v: the y-center before its
+    // first), for every column; warp 3+K+f field f's x-face past its last
+    // column (u: the x-center before its first), for every row
+    if (tj < 3 + K) {
+      if (ti < nxt) {
+        const int ii = i0 + ti, f = tj, y = f == 1 ? j0 - 1 : j0 + nyt;
+        const Ring U = t.ring(0, k, sk, y, ii), V = t.ring(1, k, sk, y, ii);
+        float fl;
+        if (f == 0) fl = flux_yu(U, V, k, y, ii, ck);
+        else if (f == 1) fl = flux_yv(V, k, y, ii, ck);
+        else if (f == 2) fl = flux_yw(V, t.ring(2, k, sk, y, ii), k, y, ii, ck, ckm);
+        else fl = flux_yc(V, t.ring(f, k, sk, y, ii), k, y, ii, ck);
+        FY[f * YF + (f == 1 ? 0 : nyt) * TX + ti] = fl;
+      }
+    } else if (ti < TY) {
+      const int f = tj - (3 + K), r = ti;
+      if (f < 3 + K && r < nyt) {
+        const int jj = j0 + r, x = f == 0 ? i0 - 1 : i0 + nxt;
+        const Ring U = t.ring(0, k, sk, jj, x);
+        float fl;
+        if (f == 0) fl = flux_xu(U, k, jj, x, ck);
+        else if (f == 1) fl = flux_xv(U, t.ring(1, k, sk, jj, x), k, jj, x, ck);
+        else if (f == 2) fl = flux_xw(U, t.ring(2, k, sk, jj, x), k, jj, x, ck, ckm);
+        else fl = flux_xc(U, t.ring(f, k, sk, jj, x), k, jj, x, ck);
+        FX[f * XF + r * (TX + 1) + (f == 0 ? 0 : nxt)] = fl;
+      }
+    }
+    __syncthreads();
+
+    if (valid) {
+      const Ring U = t.ring(0, k, sk, j, i), V = t.ring(1, k, sk, j, i),
+                 W = t.ring(2, k, sk, j, i);
+      const float izc = __ldg(a.invdzc + k), izf = __ldg(a.invdzf + k);
+      const float* fx = FX + tj * (TX + 1) + ti;
+      const float* fy = FY + tj * TX + ti;
+      float du = (fx[0 * XF + 1] - fx[0 * XF]) * idx;
+      du = du + (fy[0 * YF + TX] - fy[0 * YF]) * idy;
+      du = du + (fzu - cu) * izc;
+      float dv = (fx[1 * XF + 1] - fx[1 * XF]) * idx;
+      dv = dv + (fy[1 * YF + TX] - fy[1 * YF]) * idy;
+      dv = dv + (fzv - cv) * izc;
+      float dw = (fx[2 * XF + 1] - fx[2 * XF]) * idx;
+      dw = dw + (fy[2 * YF + TX] - fy[2 * YF]) * idy;
+      dw = dw + (fzw - cw) * izf;
+      cu = fzu;
+      cv = fzv;
+      cw = fzw;
+
+      float g[5];
+      g[0] = -du;
+      g[1] = -dv;
+      if (a.has_cor) {
+        const float rv_u = 0.25f * (V(k, j, i) * ck + V(k, j + 1, i) * ck + V(k, j, i - 1) * ck
+                                    + V(k, j + 1, i - 1) * ck);
+        const float ru_v = 0.25f * (U(k, j, i) * ck + U(k, j, i + 1) * ck + U(k, j - 1, i) * ck
+                                    + U(k, j - 1, i + 1) * ck);
+        g[0] = g[0] + a.f_cor * rv_u;
+        g[1] = g[1] - a.f_cor * ru_v;
+      }
+      g[2] = -dw + 0.5f * (bprev + bk);
+      bprev = bk;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s < K) {
+          float acc = (fx[(3 + s) * XF + 1] - fx[(3 + s) * XF]) * idx;
+          acc = acc + (fy[(3 + s) * YF + TX] - fy[(3 + s) * YF]) * idy;
+          acc = acc + (fzc[s] - cc[s]) * izc;
+          cc[s] = fzc[s];
+          g[3 + s] = -acc;
+        }
+      }
+
+      // ---- Smagorinsky-Lilly epilogue ------------------------------------
+      if (a.has_clo) {
+        const NuRing NU{nus + (tj + 1) * NW + (ti + 1), k, j, i, s3};
+        auto scal = [&](int s) { return t.ring(3 + s, k, sk, j, i); };
+        smagorinsky_divergences(U, V, W, scal, K, NU, colc, colf, izc_e, izf_e, k, j, i, idx,
+                                idy, a.inv_prandtl, g);
+      }
+
+      // ---- forcing columns and the SSP-RK3 blend ---------------------------
+      const float rho_field[3] = {U(k, j, i) * ck, V(k, j, i) * ck, W(k, j, i) * colf(k)};
+#pragma unroll
+      for (int n = 0; n < 5; ++n) {
+        if (n < 3 + K) {
+          float gn = g[n];
+          if (a.fadd[n]) gn = gn + __ldg(a.fadd[n] + k);
+          if (a.fdamp[n]) {
+            if (n < 3) {
+              gn = gn - __ldg(a.fdamp[n] + k) * rho_field[n];
+            } else {
+              gn = gn - __ldg(a.fdamp[n] + k) * t.ring(n, k, sk, j, i)(k, j, i) * ck;
+            }
+          }
+          a.out[n][p] = a.oma * prev[n] + a.alpha * (cur[n] + a.dt * gn);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    sk = sk == NSLOT - 1 ? 0 : sk + 1;
+    s3 = s3 == 2 ? 0 : s3 + 1;
+  }
+}
+
+size_t smem_bytes(int K, int has_clo, int tb_distinct) {
+  return sizeof(float) * layout(K, has_clo, tb_distinct).floats;
 }
 
 }  // namespace
@@ -147,23 +482,45 @@ int breeze_fused_tendency(const void* const* ptrs, const int* ints,
   for (int m = 0; m < 5; ++m) a.cur[m] = static_cast<const float*>(ptrs[n++]);
   for (int m = 0; m < 5; ++m) a.prev[m] = static_cast<const float*>(ptrs[n++]);
   for (int m = 0; m < 5; ++m) a.out[m] = static_cast<float*>(const_cast<void*>(ptrs[n++]));
-  a.nu = static_cast<float*>(const_cast<void*>(ptrs[n++]));
   a.nz = ints[0]; a.ny = ints[1]; a.nx = ints[2]; a.K = ints[3];
-  a.has_cor = ints[4]; a.has_clo = ints[5]; a.buoy_corr = ints[6];
+  a.has_cor = ints[4]; a.has_clo = ints[5]; a.buoy_corr = ints[6]; a.zchunk = ints[7];
   a.inv_dx = floats[0]; a.inv_dy = floats[1]; a.f_cor = floats[2];
   a.prandtl = floats[3]; a.inv_prandtl = floats[4]; a.g_acc = floats[5];
   a.alpha = floats[6]; a.dt = floats[7]; a.oma = floats[8];
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8, 1);
-  const dim3 grid((a.nx + block.x - 1) / block.x, (a.ny + block.y - 1) / block.y, a.nz);
-  if (a.has_clo) {
-    smagorinsky_nu_kernel<<<grid, block, 0, s>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  fused_tendency_kernel<<<grid, block, 0, s>>>(a);
+  const size_t smem = smem_bytes(a.K, a.has_clo, a.thb != a.th);
+  cudaError_t err = cudaFuncSetAttribute(fused_tendency_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 block(TX, TY, 1);
+  const dim3 grid((a.nx + TX - 1) / TX, (a.ny + TY - 1) / TY,
+                  (a.nz + a.zchunk - 1) / a.zchunk);
+  fused_tendency_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's resources for K scalars, with or without the closure and a
+// θᵥ window of its own: out = {shared bytes a block, blocks resident per
+// SM, registers a thread, local (spill) bytes a thread}.
+int breeze_fused_tendency_info(const int* ints, int* out) {
+  const size_t smem = smem_bytes(ints[0], ints[1], ints[2]);
+  cudaError_t err = cudaFuncSetAttribute(fused_tendency_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_tendency_kernel, NT,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fused_tendency_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(smem);
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // extern "C"

@@ -110,6 +110,8 @@ def library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.breeze_fix_negative.restype = ctypes.c_int
+        lib.breeze_fused_tendency_info.argtypes = [p_int, p_int]
+        lib.breeze_fused_tendency_info.restype = ctypes.c_int
         lib.breeze_error_string.argtypes = [ctypes.c_int]
         lib.breeze_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -24,15 +24,21 @@ in z and y (``fields.pad``; x stays unpadded and periodic), the
 time-independent columns of :class:`TendencyColumns`, and the current and
 stage-0 prognostics.
 
-On the H100 the kernel is bound by arithmetic: some thirty WENO5
-reconstructions and the closure per point, against about seventeen
-float32 fields of traffic.  The design: one thread per output point with x
-fastest, so that window reads coalesce and neighbouring reads hit the
-caches; periodic x is a modular index; ν (the eddy viscosity, with the
-z-wall mirror done by clamping the level) is written once per stage by a
-first pass of the same source, the only intermediate in device memory.
-Tiling through shared memory and the tensor-core-free roofline work are left
-for later.
+On the H100 the kernel is bound by float32 operations: 9 + 3K WENO5
+face reconstructions (each face once), ν and the closure per point, about
+1600 operations against about seventeen float32 fields of traffic.  The
+design (``csrc/tendency.cu``) is 2.5-D blocking: a block owns a 32 × 16 tile
+of columns and marches up a chunk of :data:`Z_CHUNK` levels.  The planes of
+u, v, w, θ, qᵗ (and θᵥ) for levels k−3 … k+3, the tile plus its 3-point
+halo, sit in a ring in shared memory, the next level's plane arriving by
+``cp.async`` while a level computes.  Each x and y face flux of a level is
+computed once into shared memory and every point takes differences; each z
+face flux is carried in a register to the next level.  ν is computed one
+level ahead for the tile and a 1-point halo into a ring of three ν planes,
+so the closure epilogue needs no second launch and ν never reaches device
+memory.  What holds it back: instruction issue and latency at one
+512-thread block (16 warps) per SM, which the ~169 KB of shared memory
+allows; the closure's stresses are still evaluated per point.
 
 ``fused_tendency`` runs :func:`fused_tendency_plain` for CPU tensors and the
 CUDA kernel (``csrc/tendency.cu``) for CUDA tensors.
@@ -40,6 +46,7 @@ CUDA kernel (``csrc/tendency.cu``) for CUDA tensors.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -51,6 +58,12 @@ from .weno import H, sl as _sl, weno_sel as _weno_sel, xs as _xs
 
 #: Times the CUDA kernel was launched (the plain version does not count).
 launches = 0
+
+#: Levels each block of the CUDA kernel marches over: 256³ gives 8 × 16 × 4
+#: blocks, about four waves at one block per SM on 132 SMs; each chunk loads
+#: six planes and seeds its z fluxes once (64 read 2.11 ms against 2.14 for
+#: 32 on an H100, PERF.md).
+Z_CHUNK = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,20 +223,27 @@ def fused_tendency(cfg: TendencyConfig, cols: TendencyColumns, u, v, w,
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
 
     outs = [torch.empty_like(c) for c in cur]
-    nu = (torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device)
-          if cfg.closure is not None else None)
     pad5 = lambda seq: list(seq) + [None] * (5 - len(seq))
     # order fixed by TendArgs in csrc/tendency.cu
     ptrs = ([u, v, w, scalars[0], scalars[1] if K == 2 else None, b, thb,
              cols.colc, cols.colf, cols.invdzc, cols.invdzf,
              cols.invdzc_e, cols.invdzf_e, cols.cd2_e]
-            + pad5(fadd) + pad5(fdamp) + pad5(cur) + pad5(prev) + pad5(outs)
-            + [nu])
+            + pad5(fadd) + pad5(fdamp) + pad5(cur) + pad5(prev) + pad5(outs))
     prandtl, buoy_corr, g_acc = cfg.closure or (1.0, False, 0.0)
     ints = [nz, ny, nx, K, int(cfg.f_cor is not None),
-            int(cfg.closure is not None), int(bool(buoy_corr))]
+            int(cfg.closure is not None), int(bool(buoy_corr)), Z_CHUNK]
     floats = [cfg.inv_dx, cfg.inv_dy, cfg.f_cor or 0.0, prandtl,
               1.0 / prandtl, g_acc, alpha, dt, 1.0 - alpha]
     _build.launch("breeze_fused_tendency", ptrs, ints, floats, u)
     launches += 1
     return outs
+
+
+def kernel_info(K: int, closure: bool, thv_window: bool) -> dict:
+    """The CUDA kernel's resources for K scalars, with or without the
+    closure and a θᵥ window apart from θ's: shared memory a block (bytes),
+    blocks resident per SM, registers and local (spill) bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().breeze_fused_tendency_info(
+        (ctypes.c_int * 3)(K, int(closure), int(thv_window)), out), "breeze_fused_tendency_info")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"), out))

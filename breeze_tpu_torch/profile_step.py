@@ -36,7 +36,7 @@ from .timesteppers import ssp_rk3_step
 
 STEPS = 2
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-OWN_KERNELS = ("fused_tendency_kernel", "smagorinsky_nu_kernel", "fix_negative_kernel",
+OWN_KERNELS = ("fused_tendency_kernel", "fix_negative_kernel",
                "momentum_div_cols_kernel", "momentum_div_kernel", "div_rho_u_c_kernel",
                "acoustic_column_kernel", "acoustic_damp_kernel", "acoustic_k1_kernel",
                "acoustic_k2_kernel", "closure_nu_kernel",

@@ -14,7 +14,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 3. each BOMEX kernel against its plain PyTorch version at the 256³ BOMEX
    shapes (the tendency kernel on a state with noise on every prognostic,
    its G and its increment each measured against their own size), with
-   both times;
+   both times, and the tendency kernel's registers, spill, shared memory a
+   block and blocks resident per SM;
 4. a small BOMEX run through the kernels against the same run through the
    plain versions on the CPU, with the CPU float32-vs-float64 distance;
 5. the anelastic slice: 256³ BOMEX (``bench.py``'s configuration, random θ
@@ -334,8 +335,7 @@ def phase_build() -> dict:
     report, entry = {}, ""
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
-            entry = next((k for k in ("fused_tendency", "smagorinsky_nu",
-                                      "fix_negative", "momentum_div_cols", "momentum_div",
+            entry = next((k for k in ("fused_tendency", "fix_negative", "momentum_div_cols", "momentum_div",
                                       "div_rho_u_c", "acoustic_column",
                                       "acoustic_damp", "acoustic_k1", "acoustic_k2",
                                       "closure_nu", "closure_tendencies",
@@ -418,16 +418,22 @@ def phase_parity(model, state) -> list[dict]:
     t_kernel = cuda_ms(lambda: tendency.fused_tendency(*args), 5)
     t_plain = cuda_ms(lambda: tendency.fused_tendency_plain(*args), 2)
     points = args[10][0].numel()
+    cfg, scalars, thb = args[0], args[5], args[7]
+    info = tendency.kernel_info(len(scalars), cfg.closure is not None, thb is not scalars[0])
     entries = [dict(name="fused_tendency", route="cuda",
                     source="breeze_tpu_torch/csrc/tendency.cu",
                     replaces="breeze_tpu/pallas_kernels/tendency.py:360",
                     max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain,
+                    shared_bytes=info["smem_bytes"], blocks_per_sm=info["blocks_per_sm"],
                     **bound("fused_tendency", flat(args[2:12], vars(args[1])),
                             args[10], model.grid.shape, points))]
     print(f"[3/{PHASES}] fused_tendency 256^3 stage, noise on every prognostic: max abs "
           f"err of G {max_abs:.3e}; G-relative {worst['G']:.2e}, "
           f"increment-relative {worst['increment']:.2e} (limit 1e-5); "
-          f"kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms")
+          f"kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms; {info['registers']} registers, "
+          f"{info['local_bytes']} bytes of local memory (spills), {info['smem_bytes']} bytes "
+          f"of shared memory a block, {info['blocks_per_sm']} block(s) per SM "
+          f"(z chunk {tendency.Z_CHUNK})")
     del args, s, s0
 
     nz, ny, nx = model.grid.shape
@@ -1365,7 +1371,7 @@ def main() -> int:
             return per_step[path].get("acoustic_substeps", 0) if runs else 0
         return per_step[path].get(kernel, 0)
 
-    kernel_registers = {"fused_tendency": ("fused_tendency", "smagorinsky_nu"),
+    kernel_registers = {"fused_tendency": ("fused_tendency",),
                         "fix_negative": ("fix_negative",),
                         "momentum_div": ("momentum_div",), "div_rho_u_c": ("div_rho_u_c",),
                         "acoustic_substeps": ("acoustic_column[flat]", "acoustic_damp"),

@@ -55,19 +55,51 @@ def _perturbed(model, state, seed=2):
     return s, s.replace(rho_u=s.rho_u + 0.1, rho_theta=s.rho_theta * 1.001)
 
 
+#: The fused tendency kernel's cases: (nx, ny, nz) and BOMEX as it is
+#: (forcings included), or an ``_anelastic`` model (z stretched, moist,
+#: closure, FPlane).  Beyond BOMEX's blocks and ragged sizes, the tile's
+#: edges: nz over two z chunks and not a multiple of one, nx and ny not
+#: multiples of the 32 × 16 tile; nx below the tile's width (its x halo
+#: wraps at both sides); K = 1 with θ's window for Lilly's correction; no
+#: closure; no Coriolis; the z carries across a chunk start with varying
+#: 1/Δz.
+FUSED_CASES = {
+    "blocks": ((64, 32, 32), "bomex"),
+    "ragged": ((36, 20, 12), "bomex"),
+    "z_chunks": ((40, 12, 2 * tendency.Z_CHUNK + 7), "bomex"),
+    "narrow_x": ((12, 20, 40), "bomex"),
+    "dry": ((36, 20, 13), dict(stretched=True, moist=False, closure=True, coriolis=True)),
+    "no_closure": ((40, 16, 24), dict(stretched=False, moist=True, closure=False,
+                                      coriolis=True)),
+    "no_coriolis": ((36, 20, 13), dict(stretched=False, moist=True, closure=True,
+                                       coriolis=False)),
+    "stretched": ((36, 12, tendency.Z_CHUNK + 9), dict(stretched=True, moist=True,
+                                                       closure=True, coriolis=True)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(64, 32, 32), (36, 20, 12)],
-                         ids=["blocks", "ragged"])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
 @pytest.mark.parametrize("what", ["G", "increment"])
-def test_cuda_fused_tendency_matches_plain(cuda_device, size, what):
+def test_cuda_fused_tendency_matches_plain(cuda_device, case, what):
     """``G``: zero current and stage-0 fields with α = Δt = 1 make the
     output the tendency alone; ``increment``: out − ((1−α)s⁰ + α·s) = αΔt·G
     at α = 2/3, Δt = 3, where αΔt·G stands well above the float32 rounding
     of the state it is added to.  Each against its own largest value."""
-    model = bomex.bomex_model(size, dtype=torch.float32, device=cuda_device)
-    state, state0 = _perturbed(model, bomex.bomex_state(model, _noise(model.grid.shape)))
-    args = TM.tendency_kernel_args(model, state, TM.diagnose(model, state),
-                                   3.0, state0, 2.0 / 3.0)
+    size, kind = FUSED_CASES[case]
+    if kind == "bomex":
+        model = bomex.bomex_model(size, dtype=torch.float32, device=cuda_device)
+        state, state0 = _perturbed(model, bomex.bomex_state(model, _noise(model.grid.shape)))
+    else:
+        model, state, _ = _anelastic(size, kind["stretched"], cuda_device, kind["moist"],
+                                     closure=kind["closure"], coriolis=kind["coriolis"])
+        state0 = state.replace(rho_u=state.rho_u + 0.1, rho_theta=state.rho_theta * 1.001)
+    args = TM.tendency_kernel_args(model, state, TM.diagnose(model, state), 3.0, state0,
+                                   2.0 / 3.0)
+    cfg = args[0]
+    assert model.fused
+    assert (cfg.closure is not None) == (kind == "bomex" or kind["closure"])
+    assert (cfg.f_cor is not None) == (kind == "bomex" or kind["coriolis"])
     cur, prev, alpha, _ = args[10:]
     if what == "G":
         zeros = [torch.zeros_like(c) for c in cur]
@@ -541,19 +573,21 @@ def test_cuda_split_bubble_step_goes_through_the_pair(cuda_device, floattype):
 # The anelastic routes outside the fused tendency kernel
 # ---------------------------------------------------------------------------
 
-def _anelastic(size, stretched, device, moist):
-    """An anelastic model with Smagorinsky-Lilly (moist: with saturation
-    adjustment) on an (nx, ny, nz) grid with Δx = 50 m and z uniform
-    (25 m) or stretched, and its perturbed BOMEX-like state's diagnostics
-    and windows: noise on every velocity (w off the bottom face), θ with a
-    stable gradient and noise, qᵗ decaying with height."""
+def _anelastic(size, stretched, device, moist, closure=True, coriolis=False):
+    """An anelastic model with Smagorinsky-Lilly (or no closure; moist:
+    with saturation adjustment; with an FPlane if ``coriolis``) on an
+    (nx, ny, nz) grid with Δx = 50 m and z uniform (25 m) or stretched,
+    and its perturbed BOMEX-like state's diagnostics and windows: noise on
+    every velocity (w off the bottom face), θ with a stable gradient and
+    noise, qᵗ decaying with height."""
     nx, ny, nz = size
     z = (np.concatenate([[0.0], np.cumsum(20.0 * 1.05 ** np.arange(nz))])
          if stretched else (0.0, 25.0 * nz))
     g = bt.make_grid(size, x=(0.0, 50.0 * nx), y=(0.0, 50.0 * ny), z=z,
                      dtype=torch.float32, device=device)
     model = bt.make_model(g, advection=bt.WENO(5), potential_temperature=300.0,
-                          closure=bt.SmagorinskyLilly(),
+                          closure=bt.SmagorinskyLilly() if closure else None,
+                          coriolis=bt.FPlane(1e-4) if coriolis else None,
                           microphysics=bt.SaturationAdjustment() if moist else None)
     rng = np.random.default_rng(13)
     noise = lambda sd: torch.as_tensor(rng.normal(0.0, sd, g.shape), dtype=g.dtype,
