@@ -2,7 +2,8 @@
 // or bfloat16, shared by the acoustic kernels (acoustic.cu, K3's
 // counterpart; acoustic_split.cu, K1/K2's).  The arithmetic is float32:
 // ld() and rd() return the stored value widened, st() rounds to nearest
-// even and returns the value as stored.  ld() reads through the read-only
+// even and returns the value as stored, rnd<T>() rounds as st() would
+// without storing.  ld() reads through the read-only
 // cache and is for inputs no kernel of the launch writes; rd() is a plain
 // load, for inputs that may alias an output.
 
@@ -27,6 +28,14 @@ __device__ __forceinline__ float st(__nv_bfloat16* p, float v) {
   const __nv_bfloat16 b = __float2bfloat16_rn(v);
   *p = b;
   return __bfloat162float(b);
+}
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 }  // namespace

@@ -33,15 +33,21 @@ and sums ρu′, ρv′, ρw′ over the stage's substeps.  The carries' storage
 type is the perturbations' own: bfloat16 carries are rounded after every
 substep, the arithmetic and the sums stay in the working type.
 
-On the H100 it is bound by device memory.  The design (``csrc/acoustic.cu``)
-is two launches per substep: a column kernel, one thread per (y, x) column
-marching z, for A–D (it recomputes the neighbours' ρu′, ρv′ that B needs,
-pointwise in the previous substep's fields, and keeps the Thomas sweep's
-c′, d′ in (z, y, x) scratch so that loads coalesce across x), then a
-pointwise kernel for E and the sums.  Terrain, the sponge, C_ρ and the
-storage type are template parameters of the kernels.  The TPU kernel's
-creeping y halo, 8-aligned windows and k ≤ 3 unroll for VMEM have no
-counterpart here.
+On the H100 it is bound by device memory: a substep does ~110 float32
+operations a point and moves ~28 fields.  The design (``csrc/acoustic.cu``)
+cuts each substep to one pass that moves each of those once.  A stage
+factors its column solve once (the pivots c′ and 1/den, which depend only
+on the stage's caches); each substep's pass holds a tile of columns over
+all levels on chip, with the pointwise work A, B and D spread over the
+block's groups of levels and the Thomas sweep's scratch in shared memory,
+and folds the previous substep's damping E and sums into its own reads; a
+closing pass applies the last substep's E.  So a stage is n_tau + 2
+launches.  What bounds the pass in practice is the latency of each
+group's march up its levels, hidden only by the number of groups in
+flight, which registers cap.  Terrain, the sponge, C_ρ and the storage
+type are template parameters of the kernels.  The TPU kernel's creeping y
+halo, 8-aligned windows and k ≤ 3 unroll for VMEM have no counterpart
+here.
 
 ``acoustic_substeps`` runs :func:`acoustic_substeps_plain` for CPU tensors
 and the CUDA kernels for CUDA tensors.
@@ -49,6 +55,7 @@ and the CUDA kernels for CUDA tensors.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -57,8 +64,8 @@ import torch
 from . import _build
 from ..dynamics.tridiagonal import thomas_solve
 
-#: Times a CUDA kernel was launched, two per substep (the plain version
-#: does not count).
+#: Times a CUDA kernel was launched: one per substep and two more per
+#: stage, the pivots and the closing pass (the plain version does not count).
 launches = 0
 
 
@@ -308,7 +315,6 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
 
     CPU tensors take the plain version; CUDA tensors launch the kernels.
     """
-    global launches
     if pert.rho.device.type == "cpu":
         return acoustic_substeps_plain(cfg, cols, caches, G, pert, dtau, n_tau,
                                        gate_first, metrics, rho_w_L)
@@ -357,21 +363,19 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
         grw = G.rho_w - cols.sponge[:, None, None] * rho_w_L
 
     # The caller's tensors are read, never written: substep 0 reads them and
-    # writes fresh buffers.  ρu′, ρv′, (ρθ)′ and ρ′ are read at neighbouring
-    # columns, so each ping-pongs between two buffers of its own (slots 1
-    # and 2); ρw′ and the sums are updated in place in theirs.  The momenta
-    # after A and the predictors stay in float32: in buffers of their own
-    # under bfloat16 carries, in the carries' output buffers under float32.
+    # writes fresh buffers.  ρu′, ρv′ after A, the damping input, (ρθ)′ and
+    # ρ′ are read at neighbouring columns, so each ping-pongs between two
+    # buffers of its own; ρw′ and the sums are updated in place in theirs
+    # after the pass that first writes them (the sums of ρu′, ρv′ from the
+    # second pass on, which adds the first substep's damped carries).
     device = pert.rho.device
     new = lambda dtype=torch.float32: torch.empty(shape, dtype=dtype, device=device)
-    ru, rv, rt, rho = ([p, new(store), new(store)]
-                       for p in (pert.rho_u, pert.rho_v, pert.rho_theta, pert.rho))
-    rw = new(store)
-    cp, dp, dd = new(), new(), new()
+    rt, rho = ([p, new(store), new(store)] for p in (pert.rho_theta, pert.rho))
+    ruw, rvw, dd = ([new(), new()] for _ in range(3))
+    rw, ru_out, rv_out = new(store), new(store), new(store)
+    cp, inv = new(), new()
     sums = [new() for _ in range(3)]
-    bf16 = store == torch.bfloat16
-    work = [new() for _ in range(4)] if bf16 else None
-    prev_rw, prev_sums = pert.rho_w, list(pert[5:])
+    prev_rw, prev_uv_sums, prev_rw_sum = pert.rho_w, list(pert[5:7]), pert.sum_rho_w
     omega, g_acc, damp = cfg.omega, cfg.g_acc, cfg.damping
     direct = cfg.damping_mode == "direct"
     od2 = omega * omega * dtau * dtau
@@ -379,21 +383,47 @@ def acoustic_substeps(cfg: AcousticConfig, cols: ZColumns, caches, G,
               grw, G.rho, G.rho_theta, cols.inv_dzc, cols.inv_dzf]
     extra = [*(metrics if metrics is not None else [None] * 8), cols.sponge]
     ints = [nz, ny, nx, 0 if not damp else 2 if direct else 1, int(metrics is not None),
-            int(cols.sponge is not None), int(jz == nz), int(crho is not None), int(bf16)]
+            int(cols.sponge is not None), int(jz == nz), int(crho is not None),
+            int(store == torch.bfloat16), 1]
     # the damping's factor: αΔx (direct) or αΔx/Δτ (thermal)
     fac = damp if direct else damp / dtau
     floats = [1.0 / cfg.dx, 1.0 / cfg.dy, dtau, omega, 0.0, od2, 0.5 * g_acc * od2,
               g_acc * dtau, dtau * (1.0 - omega), omega * dtau, fac * cfg.dx, fac * cfg.dy]
-    src = 0
+
+    def launch(entry, src, dst, w):
+        """``entry`` reading the previous substep from slot ``src`` of ρ′,
+        (ρθ)′ and slot ``w`` of ρu′, ρv′ after A and the damping input;
+        writing slots ``dst`` and ``1 − w``.  Order fixed by unpack() in
+        csrc/acoustic.cu."""
+        global launches
+        ptrs = ([pert.rho_u, pert.rho_v, rt[src], rho[src], prev_rw, ruw[w], rvw[w], dd[w]]
+                + inputs + prev_uv_sums + [prev_rw_sum, ru_out, rv_out, rt[dst], rho[dst], rw,
+                                           ruw[1 - w], rvw[1 - w], dd[1 - w], cp, inv]
+                + sums + extra)
+        _build.launch(entry, ptrs, ints, floats, cp)
+        launches += 1
+
+    launch("breeze_acoustic_pivots", 0, 1, 0)
+    src, w = 0, 0
     for t in range(n_tau):
+        ints[9] = int(t == 0)                                 # the caller's ρu′, ρv′
         floats[4] = 0.0 if (t == 0 and gate_first) else 1.0   # pgf
         dst = 2 if src == 1 else 1
-        outs = [ru[dst], rv[dst], rt[dst], rho[dst], rw]
-        # order fixed by unpack() in csrc/acoustic.cu
-        ptrs = ([ru[src], rv[src], rt[src], rho[src], prev_rw] + inputs + prev_sums
-                + outs + (work if bf16 else outs[:4]) + [cp, dp, dd] + sums + extra)
-        for entry in ("breeze_acoustic_column", "breeze_acoustic_damp"):
-            _build.launch(entry, ptrs, ints, floats, cp)
-            launches += 1
-        src, prev_rw, prev_sums = dst, rw, sums
-    return Perturbations(rho[src], ru[src], rv[src], rw, rt[src], *sums)
+        launch("breeze_acoustic_substep", src, dst, w)
+        if t > 0:
+            prev_uv_sums = sums[:2]
+        src, w, prev_rw, prev_rw_sum = dst, 1 - w, rw, sums[2]
+    ints[9] = 0
+    launch("breeze_acoustic_close", src, src, w)
+    return Perturbations(rho[src], ru_out, rv_out, rw, rt[src], *sums)
+
+
+def kernel_info(nz: int, terrain: bool, sponge: bool, crho: bool, bf16: bool) -> dict:
+    """The substep kernel's resources for nz levels on a branch: shared
+    memory a block (bytes), blocks resident per SM, registers and local
+    (spill) bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().breeze_acoustic_info(
+        (ctypes.c_int * 5)(nz, int(terrain), int(sponge), int(crho), int(bf16)), out),
+        "breeze_acoustic_info")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"), out))

@@ -89,7 +89,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 Each path's launch counts are zeroed just before its timed steps and read
 just after.  The line before the last is a JSON object with one entry per
 kernel (times measured here, the bound computed from this run's inputs);
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  Phases 7, 11 and 15
+also print the bytes the acoustic kernel's design moves a stage, the floor
+they give, and its substep kernel's registers, shared memory and blocks
+per SM.
 """
 
 from __future__ import annotations
@@ -304,8 +307,9 @@ def phase_device() -> tuple[str, str]:
 
 
 #: the acoustic kernels' template arguments in their mangled names: the
-#: storage type, then the column kernel's terrain, sponge and C_ρ flags
-ACOUSTIC_INSTANCE = re.compile(r"acoustic_(column|damp)_kernelI(f|13__nv_bfloat16)"
+#: storage type (the substep and closing kernels), then the terrain, sponge
+#: and C_ρ flags (the substep and pivot kernels)
+ACOUSTIC_INSTANCE = re.compile(r"acoustic_(substep|pivot|close)_kernelI(f|13__nv_bfloat16)?"
                                r"(?:Lb([01])ELb([01])ELb([01])E)?")
 
 
@@ -317,14 +321,14 @@ def split_label(line: str) -> str:
 
 
 def acoustic_label(line: str) -> str:
-    """``acoustic_column[flat]``, ``acoustic_column[terrain+sponge]``,
-    ``acoustic_damp[bf16]``, … for a ptxas line naming an instance."""
+    """``acoustic_substep[flat]``, ``acoustic_pivot[terrain+sponge]``,
+    ``acoustic_close[bf16]``, … for a ptxas line naming an instance."""
     kernel, storage, *flags = ACOUSTIC_INSTANCE.search(line).groups()
-    parts = ["bf16"] if storage != "f" else []
+    parts = ["bf16"] if storage not in (None, "f") else []
     parts += [n for n, f in zip(("terrain", "sponge", "crho"), flags) if f == "1"]
-    if kernel == "damp":
-        return "acoustic_damp" + (f"[{'+'.join(parts)}]" if parts else "")
-    return f"acoustic_column[{'+'.join(parts) or 'flat'}]"
+    if kernel == "close":
+        return "acoustic_close" + (f"[{'+'.join(parts)}]" if parts else "")
+    return f"acoustic_{kernel}[{'+'.join(parts) or 'flat'}]"
 
 
 def phase_build() -> dict:
@@ -336,8 +340,9 @@ def phase_build() -> dict:
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = next((k for k in ("fused_tendency", "fix_negative", "momentum_div_cols", "momentum_div",
-                                      "div_rho_u_c", "acoustic_column",
-                                      "acoustic_damp", "acoustic_k1", "acoustic_k2",
+                                      "div_rho_u_c", "acoustic_substep",
+                                      "acoustic_pivot", "acoustic_close", "acoustic_k1",
+                                      "acoustic_k2",
                                       "closure_nu", "closure_tendencies",
                                       "divergence", "gradient_correct") if k in line), "?")
             if entry in ("acoustic_k1", "acoustic_k2"):
@@ -596,6 +601,89 @@ def check_rel(what: str, pairs, limit: float) -> float:
     return worst
 
 
+def stage_args(model, s, aux, seed: int):
+    """One acoustic stage from state ``s``: N = 7 substeps with the PGF
+    gate at Δτ = Δt/7 (the last stage's), the stage's caches and slow
+    tendencies, noise 1e-3·N(0, 1) on the five perturbations (in the
+    carries' storage type; ρw′ zero on a flat bottom face) and zero sums;
+    returns the arguments of ``acoustic_substeps`` and its keywords."""
+    g = model.grid
+    caches = C.stage_caches(model, s, aux)
+    G = C.stage_slow_tendencies(model, s, aux)
+    rng = np.random.default_rng(seed)
+    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype, device=g.device)
+            for _ in range(5)]
+    if model.terrain is None:
+        pert[3][0] = 0.0
+    pert = [p.to(model.substep_dtype or g.dtype) for p in pert]
+    zero = torch.zeros(g.shape, dtype=g.dtype, device=g.device)
+    pert = acoustic.Perturbations(*pert, zero, zero, zero)
+    n_tau = 7
+    stage = (model.acoustic_config, model.z_columns, caches, G, pert, DT_C / n_tau, n_tau, True)
+    return stage, dict(metrics=model.acoustic_metrics, rho_w_L=C.sponge_rho_w_L(model, s))
+
+
+def design_bytes(stage, kw) -> int:
+    """The bytes one stage moves through device memory by the acoustic
+    kernels' design, each launch's fields read once and written once (the
+    neighbours' values come from the caches): the pivots, the first pass
+    (the caller's ρu′, ρv′, no damping input), the later passes and the
+    closing pass (csrc/acoustic.cu)."""
+    cfg, _, caches, _, pert, _, n_tau, _ = stage
+    n = pert.rho.numel()
+    f, c = 4 * n, pert.rho.element_size() * n
+    damp = f if cfg.damping else 0
+    direct = f if cfg.damping and cfg.damping_mode == "direct" else 0
+    crho = f if caches.C_rho is not None else 0
+    m = kw["metrics"]
+    # the four slopes and the Jacobians; 1/J at centers read again in D
+    terrain = 0 if m is None else 4 * f + sum(4 * t.numel() for t in m[:4]) + 4 * m[0].numel()
+    pivots = 2 * f + crho + (0 if m is None else 4 * (m[0].numel() + m[1].numel())) + 2 * f
+    # carries, Cᴸ, θᴸ, θᴸ at faces, C_ρ, the slow tendencies, the pivots; D
+    # writes the carries and E's input (the thermal form reads θᴸ again)
+    common = (3 * c + 3 * f + crho + 5 * f + 2 * f + terrain + 3 * c + 2 * f + damp
+              + (damp - direct))
+    first = common + 2 * c + f + f                     # ρu′, ρv′ in; ρw′'s sum
+    later = common + 2 * f + damp + 3 * f + 3 * f      # after A, E's input, three sums
+    close = 2 * f + damp + direct + 2 * f + 2 * c + 2 * f
+    return pivots + first + (n_tau - 1) * later + close
+
+
+def stage_entry(name: str, model, stage, kw, got, launches: int) -> dict:
+    """The stage's bound (``bound``: each distinct input read once, each
+    output written once), the acoustic launches its checked call made, and
+    the substep kernel's resources on this branch."""
+    cfg, cols, caches, G, pert, _, n_tau, _ = stage
+    g = model.grid
+    if launches != n_tau + 2:
+        raise AssertionError(f"{name}: {launches} acoustic launches a stage, not n_tau + 2 = "
+                             f"{n_tau + 2}")
+    info = acoustic.kernel_info(g.nz, model.terrain is not None, cols.sponge is not None,
+                                caches.C_rho is not None, pert.rho.dtype == torch.bfloat16)
+    return dict(**bound(name, flat(caches, G, pert, kw, cols.inv_dzc, cols.inv_dzf, cols.sponge),
+                        got, g.shape, n_tau * g.nx * g.ny * g.nz),
+                launches_per_stage=launches, substep_kernel=info)
+
+
+def counted_stage(stage, **kw):
+    """One call of ``acoustic_substeps`` and the launches it made."""
+    before = acoustic.launches
+    got = acoustic.acoustic_substeps(*stage, **kw)
+    torch.cuda.synchronize()
+    return got, acoustic.launches - before
+
+
+def substep_line(e: dict, stage, kw) -> str:
+    """The design's bytes a substep and the floor they give a stage, and the
+    substep kernel's resources."""
+    moved, n_tau = design_bytes(stage, kw), stage[6]
+    k = e["substep_kernel"]
+    return (f"; {e['launches_per_stage']} launches; {moved / n_tau / 1e9:.3f} GB a substep by "
+            f"design, floor {1e3 * moved / HBM_BYTES_PER_S:.3f} ms a stage; substep kernel "
+            f"{k['registers']} registers, {k['local_bytes']} B local, {k['smem_bytes']} B "
+            f"shared a block, {k['blocks_per_sm']} block(s) per SM")
+
+
 def phase_compressible_parity(model) -> list[dict]:
     g = model.grid
     points = g.nx * g.ny * g.nz
@@ -636,24 +724,11 @@ def phase_compressible_parity(model) -> list[dict]:
                         plain_ms=cuda_ms(lambda: advection.div_rho_u_c_plain(*aargs), 3),
                         **bound("div_rho_u_c", flat(aargs), [got], g.shape, points)))
 
-    # one stage of N = 7 substeps with the PGF gate, at Δτ = Δt/7 (the
-    # last stage's), from noise 1e-3·N(0, 1) on the five perturbations
-    caches = C.stage_caches(model, s, aux)
-    G = C.slow_tendencies(model, s, aux)
-    rng = np.random.default_rng(SEED + 3)
-    pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype, device=g.device)
-            for _ in range(5)]
-    pert[3][0] = 0.0
-    zero = torch.zeros_like(pert[0])
-    pert = acoustic.Perturbations(*pert, zero, zero, zero)
-    n_tau = 7
-    stage = (model.acoustic_config, model.z_columns, caches, G, pert,
-             DT_C / n_tau, n_tau, True)
-    got = acoustic.acoustic_substeps(*stage)
-    torch.cuda.synchronize()
-    # float32: the kernel's two divides in the sweep against the plain
-    # 1/den, and FMA contraction, through 7 substeps: 5e-5 of each
-    # output's largest value (the TPU kernel's test's limit)
+    stage, kw = stage_args(model, s, aux, SEED + 3)
+    got, launches = counted_stage(stage)
+    # float32: the kernel's sweep on d·(1/den) and lo·(1/den) against the
+    # plain (d − lo·d′)·(1/den), and FMA contraction, through 7 substeps:
+    # 5e-5 of each output's largest value (the TPU kernel's test's limit)
     max_abs = check_rel("acoustic_substeps",
                         zip(acoustic.Perturbations._fields, got,
                             acoustic.acoustic_substeps_plain(*stage)), 5e-5)
@@ -663,14 +738,12 @@ def phase_compressible_parity(model) -> list[dict]:
                         max_abs_err=max_abs,
                         ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage), 5),
                         plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage), 1),
-                        **bound("acoustic_substeps",
-                                flat(caches, G, pert, model.z_columns.inv_dzc,
-                                     model.z_columns.inv_dzf),
-                                got, g.shape, n_tau * points)))
+                        **stage_entry("acoustic_substeps", model, stage, kw, got, launches)))
     for e in entries:
         lines.append(f"{e['name']} max abs err {e['max_abs_err']:.3e}, kernel "
                      f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, bound "
-                     f"{e['bound_ms']:.3f} ms ({e['bound_by']})")
+                     f"{e['bound_ms']:.3f} ms ({e['bound_by']})"
+                     + (substep_line(e, stage, kw) if "substep_kernel" in e else ""))
     print(f"[7/{PHASES}] compressible kernels at 256x256x128 (acoustic: one 7-substep "
           "stage), each against its plain version: " + "; ".join(lines))
     return entries
@@ -748,12 +821,15 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
               "acoustic_substeps": acoustic.launches, "fix_negative": columnar.launches,
               "acoustic_k1": acoustic_split.k1_launches,
               "acoustic_k2": acoustic_split.k2_launches}
-    # three stages; 3 + 4 + 7 substeps of two launches each, of K3's
-    # counterpart or of the pair; with moisture ρqᵗ through the scalar kernel
-    # once a stage and its repair once a step
+    # three stages of 3 + 4 + 7 substeps: one launch each of K3's
+    # counterpart and two a stage (the pivots, the closing pass), or two
+    # each of the pair; with moisture ρqᵗ through the scalar kernel once a
+    # stage and its repair once a step
     split = model.acoustic_config.per_substep_kernels
+    plan = C.stage_substep_plan(C.substep_count(model, DT_C), DT_C)
+    k3 = sum(n_tau + 2 for n_tau, _ in plan)
     if counts != {"momentum_div": 3 * STEPS, "div_rho_u_c": (6 if moist else 3) * STEPS,
-                  "acoustic_substeps": 0 if split else 28 * STEPS,
+                  "acoustic_substeps": 0 if split else k3 * STEPS,
                   "fix_negative": STEPS if moist else 0,
                   "acoustic_k1": 14 * STEPS if split else 0,
                   "acoustic_k2": 14 * STEPS if split else 0}:
@@ -834,51 +910,52 @@ def noisy_ridge(model, seed: int):
                          rho_theta=state.rho_theta + gauss(0.05))
 
 
+#: phase 11's cases: ridge_model's options
+TERRAIN_CASES = {"linear": {}, "sleve": SLEVE,
+                 "linear+sponge": dict(sponge=C.UpperSponge(depth=SPONGE_DEPTH))}
+
+
+def branch_stage(case: str, device):
+    """The model and one 7-substep stage (``stage_args``) of an acoustic
+    branch at 256×256×128 as phases 7, 11 and 15 build it: ``flat`` (the
+    noisy dry bubble), a key of ``TERRAIN_CASES`` (the noisy bubble over the
+    ridge made to vary in y) or of ``BRANCH_CASES`` (the noisy bubble of
+    that configuration)."""
+    if case in TERRAIN_CASES:
+        model = ridge.ridge_model(SIZE_C, device=device, y_amplitude=0.3, **TERRAIN_CASES[case])
+        s, seed = noisy_ridge(model, SEED + 5), SEED + 6
+    else:
+        model = bubble.bubble_model(SIZE_C, device=device,
+                                    **({} if case == "flat" else BRANCH_CASES[case][0]))
+        s, seed = (noisy_bubble(model, SEED + 2), SEED + 3) if case == "flat" else (
+            noisy_bubble(model, SEED + 8), SEED + 9)
+    return (model, *stage_args(model, s, C.compressible_diagnose(model, s), seed))
+
+
 def phase_terrain_parity(device, registers: dict) -> dict:
     """The terrain branches of the acoustic kernel against the plain loop at
     256×256×128: one entry for the ridge in LinearDecay (the main path's
     branch), with the SLEVE and the sponge cases as its variants."""
-    cases = (("linear", "acoustic_column[terrain]", {}),
-             ("sleve", "acoustic_column[terrain]", SLEVE),
-             ("linear+sponge", "acoustic_column[terrain+sponge]",
-              dict(sponge=C.UpperSponge(depth=SPONGE_DEPTH))))
     results, lines = [], []
-    for case, kernel, kw in cases:
-        model = ridge.ridge_model(SIZE_C, device=device, y_amplitude=0.3, **kw)
-        g = model.grid
-        s = noisy_ridge(model, SEED + 5)
-        aux = C.compressible_diagnose(model, s)
-        caches = C.stage_caches(model, s, aux)
-        G = C.stage_slow_tendencies(model, s, aux)
-        rng = np.random.default_rng(SEED + 6)
-        pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype,
-                                device=g.device) for _ in range(5)]
-        zero = torch.zeros_like(pert[0])
-        pert = acoustic.Perturbations(*pert, zero, zero, zero)
-        n_tau = 7
-        stage = (model.acoustic_config, model.z_columns, caches, G, pert,
-                 DT_C / n_tau, n_tau, True)
-        kw = dict(metrics=model.acoustic_metrics, rho_w_L=C.sponge_rho_w_L(model, s))
-        got = acoustic.acoustic_substeps(*stage, **kw)
-        torch.cuda.synchronize()
+    for case in TERRAIN_CASES:
+        model, stage, kw = branch_stage(case, device)
+        got, launches = counted_stage(stage, **kw)
         # as phase 7: 5e-5 of each output's largest value
         max_abs = check_rel(f"acoustic_substeps over terrain ({case})",
                             zip(acoustic.Perturbations._fields, got,
                                 acoustic.acoustic_substeps_plain(*stage, **kw)), 5e-5)
+        instance = "terrain+sponge" if "sponge" in case else "terrain"
         entry = dict(case=case, max_abs_err=max_abs,
                      ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage, **kw), 5),
                      plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage, **kw), 1),
-                     registers=registers.get(kernel),
-                     **bound("acoustic_substeps_terrain",
-                             flat(caches, G, pert, kw, model.acoustic_metrics,
-                                  model.z_columns.inv_dzc, model.z_columns.inv_dzf,
-                                  model.z_columns.sponge),
-                             got, g.shape, n_tau * g.nx * g.ny * g.nz))
+                     registers={k: registers.get(f"{k}[{instance}]")
+                                for k in ("acoustic_substep", "acoustic_pivot")},
+                     **stage_entry("acoustic_substeps_terrain", model, stage, kw, got, launches))
         results.append(entry)
         lines.append(f"{case}: max abs err {max_abs:.3e}, kernel {entry['ms']:.3f} ms, plain "
                      f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.3f} ms "
-                     f"({entry['bound_by']}), {entry['registers']}")
-        del model, s, aux, caches, G, pert, got, stage, kw
+                     f"({entry['bound_by']})" + substep_line(entry, stage, kw))
+        del model, stage, kw, got
         torch.cuda.empty_cache()
     print(f"[11/{PHASES}] acoustic kernel over terrain at 256x256x128 (one 7-substep stage, "
           "a ridge varying in y), against its plain version: " + "; ".join(lines))
@@ -924,17 +1001,17 @@ def phase_terrain_small() -> None:
 
 
 #: phase 15's cases: (bubble_model's options, the OPS_PER_POINT key, the
-#: column kernel's instance, the damp kernel's instance)
+#: substep and closing kernels' instances)
 BRANCH_CASES = {
     "crho+direct": (dict(moist=True, formulation="static_energy",
                          damping=C.DirectDivergenceDamping(0.1)),
-                    "acoustic_substeps_crho_direct", "acoustic_column[crho]", "acoustic_damp"),
+                    "acoustic_substeps_crho_direct", "acoustic_substep[crho]", "acoustic_close"),
     "crho+thermal": (dict(moist=True, formulation="static_energy"),
-                     "acoustic_substeps_crho", "acoustic_column[crho]", "acoustic_damp"),
+                     "acoustic_substeps_crho", "acoustic_substep[crho]", "acoustic_close"),
     "theta+direct": (dict(moist=True, damping=C.DirectDivergenceDamping(0.1)),
-                     "acoustic_substeps_direct", "acoustic_column[flat]", "acoustic_damp"),
+                     "acoustic_substeps_direct", "acoustic_substep[flat]", "acoustic_close"),
     "bf16": (dict(substep_floattype="bfloat16"), "acoustic_substeps",
-             "acoustic_column[bf16]", "acoustic_damp[bf16]"),
+             "acoustic_substep[bf16]", "acoustic_close[bf16]"),
 }
 
 
@@ -946,25 +1023,9 @@ def phase_branch_parity(device, registers: dict) -> list[dict]:
     branch (C_ρ + direct) with the C_ρ + thermal and θ + direct cases as its
     variants, one for the bfloat16 path's."""
     results, lines = {}, []
-    for case, (kw, ops, column, damp) in BRANCH_CASES.items():
-        model = bubble.bubble_model(SIZE_C, device=device, **kw)
-        g = model.grid
-        s = noisy_bubble(model, SEED + 8)
-        aux = C.compressible_diagnose(model, s)
-        caches = C.stage_caches(model, s, aux)
-        G = C.slow_tendencies(model, s, aux)
-        rng = np.random.default_rng(SEED + 9)
-        pert = [torch.as_tensor(rng.normal(0.0, 1e-3, g.shape), dtype=g.dtype,
-                                device=g.device) for _ in range(5)]
-        pert[3][0] = 0.0
-        pert = [p.to(model.substep_dtype or g.dtype) for p in pert]
-        zero = torch.zeros(g.shape, dtype=g.dtype, device=g.device)
-        pert = acoustic.Perturbations(*pert, zero, zero, zero)
-        n_tau = 7
-        stage = (model.acoustic_config, model.z_columns, caches, G, pert,
-                 DT_C / n_tau, n_tau, True)
-        got = acoustic.acoustic_substeps(*stage)
-        torch.cuda.synchronize()
+    for case, (_, ops, substep, close) in BRANCH_CASES.items():
+        model, stage, kw = branch_stage(case, device)
+        got, launches = counted_stage(stage)
         # float32 as phase 7: 5e-5 of each output's largest value; bfloat16
         # carries may round the other way where the kernel's and the plain
         # version's float32 results straddle a rounding boundary: 3e-2, the
@@ -978,16 +1039,14 @@ def phase_branch_parity(device, registers: dict) -> list[dict]:
         entry = dict(case=case, max_abs_err=max_abs,
                      ms=cuda_ms(lambda: acoustic.acoustic_substeps(*stage), 5),
                      plain_ms=cuda_ms(lambda: acoustic.acoustic_substeps_plain(*stage), 1),
-                     registers={k: registers.get(k) for k in (column, damp)},
-                     **bound(ops, flat(caches, G, pert, model.z_columns.inv_dzc,
-                                       model.z_columns.inv_dzf),
-                             got, g.shape, n_tau * g.nx * g.ny * g.nz))
+                     registers={k: registers.get(k) for k in (substep, close)},
+                     **stage_entry(ops, model, stage, kw, got, launches))
         results[case] = entry
         lines.append(f"{case}: max abs err {max_abs:.3e}, relative {worst:.2e} (limit "
                      f"{limit}), kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-                     f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
-                     f"{registers.get(column)}")
-        del model, s, aux, caches, G, pert, got, stage
+                     f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']})"
+                     + substep_line(entry, stage, kw))
+        del model, stage, kw, got
         torch.cuda.empty_cache()
     print(f"[15/{PHASES}] acoustic kernel's C_ρ, direct and bf16 branches at 256x256x128 "
           "(one 7-substep stage), against its plain version: " + "; ".join(lines))
@@ -1374,13 +1433,17 @@ def main() -> int:
     kernel_registers = {"fused_tendency": ("fused_tendency",),
                         "fix_negative": ("fix_negative",),
                         "momentum_div": ("momentum_div",), "div_rho_u_c": ("div_rho_u_c",),
-                        "acoustic_substeps": ("acoustic_column[flat]", "acoustic_damp"),
-                        "acoustic_substeps_terrain": ("acoustic_column[terrain]",
-                                                      "acoustic_damp"),
-                        "acoustic_substeps_rhoe_direct": ("acoustic_column[crho]",
-                                                          "acoustic_damp"),
-                        "acoustic_substeps_bf16": ("acoustic_column[bf16]",
-                                                   "acoustic_damp[bf16]"),
+                        "acoustic_substeps": ("acoustic_substep[flat]",
+                                              "acoustic_pivot[flat]", "acoustic_close"),
+                        "acoustic_substeps_terrain": ("acoustic_substep[terrain]",
+                                                      "acoustic_pivot[terrain]",
+                                                      "acoustic_close"),
+                        "acoustic_substeps_rhoe_direct": ("acoustic_substep[crho]",
+                                                          "acoustic_pivot[crho]",
+                                                          "acoustic_close"),
+                        "acoustic_substeps_bf16": ("acoustic_substep[bf16]",
+                                                   "acoustic_pivot[flat]",
+                                                   "acoustic_close[bf16]"),
                         "momentum_div_cols": ("momentum_div_cols",),
                         "closure": ("closure_nu", "closure_tendencies"),
                         "divergence": ("divergence",),
