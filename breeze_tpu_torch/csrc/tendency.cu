@@ -42,19 +42,17 @@
 // stresses are still evaluated per output point (each T twice, as the
 // reference's block does); a level has two barriers.
 // The closure's device code is smagorinsky.cuh, which the closure kernel
-// (closure.cu) shares.
+// (closure.cu) shares; the tile, the ring and the momentum face fluxes are
+// momentum_tile.cuh, which the column-momentum kernel (momentum.cu) shares.
 
+#include "momentum_tile.cuh"
 #include "smagorinsky.cuh"
 
 namespace {
 
-constexpr int TX = 32, TY = 16, NT = TX * TY;
 // one warp a tile row; warps enough for one extra face of each field in x and y
 static_assert(TX == 32 && TY >= 10, "the extra faces take a warp each");
-constexpr int PW = TX + 2 * HALO, PLANE = PW * (TY + 2 * HALO);  // a field's plane
-constexpr int NSLOT = 7;                                          // levels k-3 .. k+3
 constexpr int NW = TX + 2, NUPLANE = NW * (TY + 2);               // ν with a 1-point halo
-constexpr int XF = TY * (TX + 1), YF = (TY + 1) * TX;             // face fluxes a level
 
 struct TendArgs {
   const float *u, *v, *w, *th, *qt, *b, *thb;
@@ -84,20 +82,6 @@ __host__ __device__ inline Layout layout(int K, int has_clo, int tb_distinct) {
   return l;
 }
 
-__device__ __forceinline__ int slot7(int s) {
-  return s < 0 ? s + NSLOT : (s >= NSLOT ? s - NSLOT : s);
-}
-
-// A field's ring of planes seen from (k, j, i): p is the field's slot 0 at
-// (j, i), sk the slot of level k; reads levels k-3 .. k+3.
-struct Ring {
-  const float* p;
-  int k, j, i, sk;
-  __device__ __forceinline__ float operator()(int kk, int jj, int ii) const {
-    return p[slot7(sk + (kk - k)) * PLANE + (jj - j) * PW + (ii - i)];
-  }
-};
-
 // The ring of three ν planes seen from (k, j, i); s3 is the slot of level k.
 struct NuRing {
   const float* p;
@@ -109,74 +93,13 @@ struct NuRing {
   }
 };
 
-struct Tile {
-  const float* sm;
-  int i0, j0;
-  __device__ __forceinline__ Ring ring(int f, int k, int sk, int j, int i) const {
-    return Ring{sm + f * NSLOT * PLANE + (j - j0 + HALO) * PW + (i - i0 + HALO), k, j, i, sk};
-  }
-};
-
-// weno_sel without a branch: the upwind cells are selected first, so a warp
-// whose faces differ in sign runs one reconstruction, not both (the same
-// arithmetic on the same cells; 2.10 against 2.16 ms a 256³ stage on an
-// H100, PERF.md).
-template <bool NORM>
-__device__ __forceinline__ float weno_up(const float c[6], float sign) {
-  const bool up = sign >= 0.0f;
-  return weno5<NORM>(up ? c[0] : c[5], up ? c[1] : c[4], up ? c[2] : c[3], up ? c[3] : c[2],
-                     up ? c[4] : c[1]);
-}
-
-// ---- face fluxes (weno.cuh's momentum_divs, one face each) ----------------
-// ck, ckm: ρᵣ at centers k and k-1.  x: on row j of level k, at x-center c
-// (u) or x-face x (the others); y: on column i, at y-face y or y-center c (v).
-__device__ __forceinline__ float flux_xu(const Ring& U, int k, int j, int c, float ck) {
-  float q[6];
-  const float mf = 0.5f * (U(k, j, c) * ck + U(k, j, c + 1) * ck);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, j, c + o);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_xv(const Ring& U, const Ring& V, int k, int j, int x,
-                                         float ck) {
-  float q[6];
-  const float mf = 0.5f * (U(k, j, x) * ck + U(k, j - 1, x) * ck);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, j, x + o - 1);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_xw(const Ring& U, const Ring& W, int k, int j, int x,
-                                         float ck, float ckm) {
-  float q[6];
-  const float mf = 0.5f * (U(k, j, x) * ck + U(k - 1, j, x) * ckm);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, j, x + o - 1);
-  return mf * weno_up<false>(q, mf);
-}
+// ---- the scalars' face fluxes (momentum_tile.cuh has the momenta's) -------
 __device__ __forceinline__ float flux_xc(const Ring& U, const Ring& C, int k, int j, int x,
                                          float ck) {
   float q[6];
   const float mf = U(k, j, x) * ck;
   for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, j, x + o - 1);
   return mf * weno_up<true>(q, mf);
-}
-__device__ __forceinline__ float flux_yu(const Ring& U, const Ring& V, int k, int y, int i,
-                                         float ck) {
-  float q[6];
-  const float mf = 0.5f * (V(k, y, i) * ck + V(k, y, i - 1) * ck);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = U(k, y + o - 1, i);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_yv(const Ring& V, int k, int c, int i, float ck) {
-  float q[6];
-  const float mf = 0.5f * (V(k, c, i) * ck + V(k, c + 1, i) * ck);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = V(k, c + o, i);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_yw(const Ring& V, const Ring& W, int k, int y, int i,
-                                         float ck, float ckm) {
-  float q[6];
-  const float mf = 0.5f * (V(k, y, i) * ck + V(k - 1, y, i) * ckm);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = W(k, y + o - 1, i);
-  return mf * weno_up<false>(q, mf);
 }
 __device__ __forceinline__ float flux_yc(const Ring& V, const Ring& C, int k, int y, int i,
                                          float ck) {
@@ -185,68 +108,13 @@ __device__ __forceinline__ float flux_yc(const Ring& V, const Ring& C, int k, in
   for (int o = -2; o <= 3; ++o) q[o + 2] = C(k, y + o - 1, i);
   return mf * weno_up<true>(q, mf);
 }
-// z, on the thread's own column: u and v at face kf, w at center c, the
-// scalars at face kf (ρᵣ at faces colf, at centers colc).
-__device__ __forceinline__ float flux_zu(const Ring& U, const Ring& W, int kf, int j, int i,
-                                         float cf) {
-  float q[6];
-  const float mf = 0.5f * (W(kf, j, i) * cf + W(kf, j, i - 1) * cf);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = U(kf + o - 1, j, i);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_zv(const Ring& V, const Ring& W, int kf, int j, int i,
-                                         float cf) {
-  float q[6];
-  const float mf = 0.5f * (W(kf, j, i) * cf + W(kf, j - 1, i) * cf);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = V(kf + o - 1, j, i);
-  return mf * weno_up<false>(q, mf);
-}
-__device__ __forceinline__ float flux_zw(const Ring& W, int c, int j, int i, float cf0,
-                                         float cf1) {
-  float q[6];
-  const float mf = 0.5f * (W(c, j, i) * cf0 + W(c + 1, j, i) * cf1);
-  for (int o = -2; o <= 3; ++o) q[o + 2] = W(c + o, j, i);
-  return mf * weno_up<false>(q, mf);
-}
+// z, on the thread's own column, at face kf (ρᵣ at centers colc).
 __device__ __forceinline__ float flux_zc(const Ring& W, const Ring& C, int kf, int j, int i,
                                          float cc0, float cc1) {
   float q[6];
   const float mf = 0.5f * (cc0 + cc1) * W(kf, j, i);
   for (int o = -2; o <= 3; ++o) q[o + 2] = C(kf + o - 1, j, i);
   return mf * weno_up<true>(q, mf);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Issue the copies of level kk's planes (the tile's nyt+6 rows and nxt+6
-// columns; x wrapped, y and z from the windows' pads) into their slot.
-__device__ __forceinline__ void load_level(const TendArgs& a, const Layout& l, float* sm,
-                                           int kk, int i0, int j0, int nxt, int nyt) {
-  const int nxl = nxt + 2 * HALO, n = nxl * (nyt + 2 * HALO);
-  const int nyp = a.ny + 2 * HALO;
-  float* dst0 = sm + (kk + 3 * NSLOT) % NSLOT * PLANE;
-  for (int e = threadIdx.y * TX + threadIdx.x; e < n; e += NT) {
-    const int r = e / nxl, c = e - r * nxl;
-    const size_t off =
-        ((size_t)(kk + HALO) * nyp + (j0 + r)) * a.nx + wrap(i0 - HALO + c, a.nx);
-    float* dst = dst0 + r * PW + c;
-#pragma unroll
-    for (int f = 0; f < 6; ++f) {
-      if (f < l.nf) {
-        const float* s = f == 0 ? a.u : f == 1 ? a.v : f == 2 ? a.w : f == 3 ? a.th
-                         : f == 4 && a.K == 2 ? a.qt : a.thb;
-        cp_async4(dst + f * NSLOT * PLANE, s + off);
-      }
-    }
-  }
-  cp_async_commit();
 }
 
 __global__ void __launch_bounds__(NT, 1) fused_tendency_kernel(TendArgs a) {
@@ -266,6 +134,14 @@ __global__ void __launch_bounds__(NT, 1) fused_tendency_kernel(TendArgs a) {
   const Col colc{a.colc}, colf{a.colf}, izc_e{a.invdzc_e}, izf_e{a.invdzf_e}, cd2{a.cd2_e};
   const Win B{a.b, nyp, nx};
   const float idx = a.inv_dx, idy = a.inv_dy;
+  // the ring's fields: u, v, w, θ, then qᵗ (K = 2) and θᵥ
+  const auto field = [&](int f) {
+    return f == 0 ? a.u : f == 1 ? a.v : f == 2 ? a.w : f == 3 ? a.th
+           : f == 4 && a.K == 2 ? a.qt : a.thb;
+  };
+  const auto load = [&](int kk) {
+    load_level<6>(sm, field, l.nf, kk, i0, j0, nxt, nyt, a.ny, a.nx);
+  };
 
   // ν at level kk (clamped: the wall mirror) for the tile and its 1-point
   // halo into ν slot s3
@@ -287,7 +163,7 @@ __global__ void __launch_bounds__(NT, 1) fused_tendency_kernel(TendArgs a) {
   };
 
   // ---- the chunk's first planes, ν below it and the z-flux carries --------
-  for (int kk = k0 - 3; kk <= k0 + 3; ++kk) load_level(a, l, sm, kk, i0, j0, nxt, nyt);
+  for (int kk = k0 - 3; kk <= k0 + 3; ++kk) load(kk);
   cp_async_wait_all();
   __syncthreads();
   int sk = k0 % NSLOT, s3 = k0 % 3;
@@ -311,7 +187,7 @@ __global__ void __launch_bounds__(NT, 1) fused_tendency_kernel(TendArgs a) {
   __syncthreads();   // slot k0-3 is free for level k0+4
 
   for (int k = k0; k < k1; ++k) {
-    if (k + 4 <= k1 + 2) load_level(a, l, sm, k + 4, i0, j0, nxt, nyt);
+    if (k + 4 <= k1 + 2) load(k + 4);
     // the blend's inputs, read now so that their latency hides under the fluxes
     const size_t p = ((size_t)k * ny + j) * nx + i;
     float cur[5], prev[5], bk = 0.0f;

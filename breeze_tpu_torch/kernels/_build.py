@@ -88,6 +88,7 @@ def build_log() -> str:
 
 #: The entry points that take (pointers, ints, floats, stream) arrays.
 ARRAY_ENTRY_POINTS = ("breeze_fused_tendency", "breeze_momentum_div",
+                      "breeze_momentum_div_cols",
                       "breeze_div_rho_u_c", "breeze_acoustic_pivots",
                       "breeze_acoustic_substep", "breeze_acoustic_close",
                       "breeze_acoustic_k1", "breeze_acoustic_k2",
@@ -115,6 +116,10 @@ def library() -> ctypes.CDLL:
         lib.breeze_fused_tendency_info.restype = ctypes.c_int
         lib.breeze_acoustic_info.argtypes = [p_int, p_int]
         lib.breeze_acoustic_info.restype = ctypes.c_int
+        lib.breeze_acoustic_k2_info.argtypes = [p_int, p_int]
+        lib.breeze_acoustic_k2_info.restype = ctypes.c_int
+        lib.breeze_momentum_div_cols_info.argtypes = [p_int]
+        lib.breeze_momentum_div_cols_info.restype = ctypes.c_int
         lib.breeze_error_string.argtypes = [ctypes.c_int]
         lib.breeze_error_string.restype = ctypes.c_char_p
         _library = lib

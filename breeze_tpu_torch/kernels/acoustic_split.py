@@ -22,33 +22,33 @@ One substep (the steps of ``kernels/acoustic.py``):
   stored (ρθ)′.  Its five outputs are in the carries' storage type.
 
 Both take 1/Δz from the float64 spacings (``ZColumns.inv_dzc``,
-``inv_dzf``).  The loop adds the stored ρu′, ρv′, ρw′ to the stage's sums
-outside both kernels, three in-place adds a substep, as the TPU driver
-loop does (``acoustic.py:1126-1128``).
+``inv_dzf``).  The plain loop adds the stored ρu′, ρv′, ρw′ to the
+stage's sums outside both kernels, as the TPU driver loop does
+(``acoustic.py:1126-1128``); on the card K2 adds them itself
+(:func:`acoustic_k2_sums`), the first substep's sums into new tensors and
+the later ones in place.
 
 On the H100 both kernels are bound by device memory; ``csrc/
-acoustic_split.cu`` has the design: K1 one thread per point, K2 one thread
-per column with redundant halo columns for E.  ``acoustic_k1``,
-``acoustic_k2`` and ``acoustic_substeps_split`` run the plain versions for
-CPU tensors and the CUDA kernels for CUDA tensors.
+acoustic_split.cu`` has the design: K1 one thread per point; K2 two
+launches, the column solve in shared memory (32 columns × all levels a
+block) and E, one thread per point.  ``acoustic_k1``, ``acoustic_k2``,
+``acoustic_k2_sums`` and ``acoustic_substeps_split`` run the plain versions
+for CPU tensors and the CUDA kernels for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .acoustic import AcousticConfig, Perturbations, ZColumns
 
-#: Times each CUDA kernel was launched, once per substep each (the plain
-#: versions do not count).
+#: Times each CUDA kernel was launched (the plain versions do not count):
+#: K1 once a substep, K2 twice (the column solve, then E).
 k1_launches = 0
 k2_launches = 0
-
-#: K2's tile of columns and threads per block (``csrc/acoustic_split.cu``):
-#: 32 × 8 owned columns and one halo column each on the low x and y sides.
-K2_TILE = (32, 8)
-K2_THREADS = K2_TILE[0] * K2_TILE[1] + sum(K2_TILE)
 
 
 def _xm(a):
@@ -217,12 +217,45 @@ def acoustic_k2(cfg: AcousticConfig, cols: ZColumns, caches, G_rho_w, carries, k
     - ``k1``: :func:`acoustic_k1`'s ρu′, ρv′, ρ′★, (ρθ)′★ of this substep.
 
     Returns the new ρ′, ρu′, ρv′, ρw′, (ρθ)′ in the carries' storage type.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (the column solve, then E).
     """
-    global k2_launches
     _check(cfg, caches)
     if carries[0].device.type == "cpu":
         return acoustic_k2_plain(cfg, cols, caches, G_rho_w, carries, k1, dtau)
+    return _launch_k2(cfg, cols, caches, G_rho_w, carries, k1, dtau, (None,) * 3, (None,) * 3)
+
+
+def acoustic_k2_sums(cfg: AcousticConfig, cols: ZColumns, caches, G_rho_w, carries, k1,
+                     dtau: float, sums, sums_out):
+    """K2 with the stage's sums: :func:`acoustic_k2`, and ``sums_out`` =
+    ``sums`` + the stored ρu′, ρv′, ρw′ widened to the sums' type.
+
+    - ``sums``: the sums of ρu′, ρv′, ρw′ so far, ``(nz, ny, nx)`` in the
+      working type (float32 on the card);
+    - ``sums_out``: where the new sums go, ``sums`` itself to add in place.
+
+    Returns the new ρ′, ρu′, ρv′, ρw′, (ρθ)′ as :func:`acoustic_k2`.  CPU
+    tensors take the plain version and add; CUDA tensors launch the kernels.
+    """
+    _check(cfg, caches)
+    if carries[0].device.type == "cpu":
+        out = acoustic_k2_plain(cfg, cols, caches, G_rho_w, carries, k1, dtau)
+        for s, o, c in zip(sums, sums_out, out[1:4]):
+            torch.add(s, c.to(s.dtype), out=o)
+        return out
+    shape = carries[0].shape
+    for name, t in zip(("sum_rho_u", "sum_rho_v", "sum_rho_w"), sums):
+        _build.require_cuda(name, t, shape)
+    for name, t in zip(("sum_rho_u out", "sum_rho_v out", "sum_rho_w out"), sums_out):
+        _build.require_cuda(name, t, shape)
+    return _launch_k2(cfg, cols, caches, G_rho_w, carries, k1, dtau, sums, sums_out)
+
+
+def _launch_k2(cfg, cols, caches, G_rho_w, carries, k1, dtau, sums, sums_out):
+    """K2's two launches on the card; ``sums`` and ``sums_out`` three
+    tensors each, or three ``None`` each for no sums."""
+    global k2_launches
     nz, ny, nx = shape = _require_carries(carries)
     for name, t in zip(("ru_new", "rv_new", "rho_star", "rt_star", "C_L", "theta_L",
                         "theta_L_zf", "G.rho_w"),
@@ -235,9 +268,7 @@ def acoustic_k2(cfg: AcousticConfig, cols: ZColumns, caches, G_rho_w, carries, k
     ru_new, rv_new, rhos, rts = k1
     device = rho.device
     outs = [torch.empty(shape, dtype=store, device=device) for _ in range(5)]
-    blocks = -(-nx // K2_TILE[0]) * -(-ny // K2_TILE[1])
-    cp, dp = (torch.empty((nz, blocks, K2_THREADS), dtype=torch.float32, device=device)
-              for _ in range(2))
+    dd = torch.empty(shape, dtype=torch.float32, device=device) if cfg.damping else None
     omega, g_acc = cfg.omega, cfg.g_acc
     od2 = omega * omega * dtau * dtau
     fac = cfg.damping / dtau
@@ -246,13 +277,24 @@ def acoustic_k2(cfg: AcousticConfig, cols: ZColumns, caches, G_rho_w, carries, k
     _build.launch("breeze_acoustic_k2",
                   [rhos, rts, ru_new, rv_new, rw, rho, rt, G_rho_w, caches.C_L,
                    caches.theta_L, caches.theta_L_zf, cols.inv_dzc, cols.inv_dzf,
-                   *outs, cp, dp],
-                  [nz, ny, nx, int(store == torch.bfloat16), int(bool(cfg.damping))],
+                   *sums, *outs, dd, *sums_out],
+                  [nz, ny, nx, int(store == torch.bfloat16)],
                   [dtau, omega, od2, 0.5 * g_acc * od2, g_acc * dtau, omega * dtau,
                    fac * cfg.dx, fac * cfg.dy], rho)
-    k2_launches += 1
+    k2_launches += 2
     ru, rv, rw_out, rho_out, rt_out = outs
     return rho_out, ru, rv, rw_out, rt_out
+
+
+def k2_kernel_info(nz: int, bf16: bool) -> dict:
+    """K2's column kernel's resources for nz levels: shared memory a block
+    (bytes), blocks resident per SM, registers and local (spill) bytes a
+    thread."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().breeze_acoustic_k2_info((ctypes.c_int * 2)(nz, int(bf16)),
+                                                          out),
+                 "breeze_acoustic_k2_info")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"), out))
 
 
 def _substeps(k1, k2, cfg, cols, caches, G, pert, dtau, n_tau, gate_first):
@@ -289,14 +331,25 @@ def acoustic_substeps_split(cfg: AcousticConfig, cols: ZColumns, caches, G,
                             pert: Perturbations, dtau: float, n_tau: int,
                             gate_first: bool) -> Perturbations:
     """``n_tau`` acoustic substeps of length ``dtau``, each one K1 and one
-    K2 launch; the arguments and the result as ``kernels.acoustic.
-    acoustic_substeps``'s on a flat ρθ stage without a sponge.  The
-    damping must be none or thermal.
+    K2 (two launches on the card); the arguments and the result as
+    ``kernels.acoustic.acoustic_substeps``'s on a flat ρθ stage without a
+    sponge.  The damping must be none or thermal.
 
-    CPU tensors take the plain pair; CUDA tensors launch the kernels.
+    CPU tensors take the plain pair; CUDA tensors launch the kernels, K2
+    with the sums folded in.
     """
-    if pert.rho.device.type != "cpu":
-        for name, t in zip(Perturbations._fields[5:], pert[5:]):
-            _build.require_cuda(name, t, pert.rho.shape)
-    return _substeps(acoustic_k1, acoustic_k2, cfg, cols, caches, G, pert, dtau, n_tau,
-                     gate_first)
+    if pert.rho.device.type == "cpu":
+        return _substeps(acoustic_k1, acoustic_k2, cfg, cols, caches, G, pert, dtau, n_tau,
+                         gate_first)
+    if n_tau < 1 or dtau <= 0.0:
+        raise ValueError("need n_tau >= 1 and dtau > 0")
+    carries, sums = tuple(pert[:5]), tuple(pert[5:])
+    for t in range(n_tau):
+        pgf = 0.0 if (t == 0 and gate_first) else 1.0
+        # the first substep's sums go to new tensors: the caller's are read only
+        out = tuple(torch.empty_like(s) for s in sums) if t == 0 else sums
+        carries = acoustic_k2_sums(cfg, cols, caches, G.rho_w, carries,
+                                   acoustic_k1(cfg, cols, caches, G, carries, dtau, pgf),
+                                   dtau, sums, out)
+        sums = out
+    return Perturbations(*carries, *sums)

@@ -1,4 +1,4 @@
-"""WENO5 momentum flux divergences: the momentum kernel.
+"""WENO5 momentum flux divergences: the momentum kernels.
 
 Replaces ``breeze_tpu/pallas_kernels/momentum.py::momentum_div_pallas`` (the
 ``pl.pallas_call`` in ``_run``, body ``momentum_divs``) and, as
@@ -17,17 +17,20 @@ velocity windows and the reference density at centers and faces as
 ``H``-padded columns, the momenta formed inside the kernel.  Row 0 of
 ``dw`` reads below-wall pad data, which the wall condition overwrites.
 
-On the H100 device memory and arithmetic bound it about equally
-(``csrc/momentum.cu`` has the numbers).  The design: one thread per output
-point with x fastest, like the fused tendency kernel, whose momentum terms
-are the same code (``momentum_divs`` in ``csrc/weno.cuh``).
+On the H100 (``csrc/momentum.cu`` has the numbers) :func:`momentum_div` is
+one thread per output point with x fastest, each interface reconstructed
+twice; :func:`momentum_div_cols` is the fused tendency kernel's z-marching
+tile (``csrc/momentum_tile.cuh``): 32 × 16 columns a block marching up
+:data:`COLS_Z_CHUNK` levels, u, v, w in a ring of planes in shared memory,
+each face reconstructed once.
 
 ``momentum_div`` and ``momentum_div_cols`` run their plain versions for
-CPU tensors and the CUDA kernel (``csrc/momentum.cu``, one instance each)
-for CUDA tensors.
+CPU tensors and the CUDA kernels for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,6 +42,10 @@ from .weno import H, sl, weno_sel, xs
 #: :func:`momentum_div_cols`.
 launches = 0
 cols_launches = 0
+
+#: The levels a block of the column kernel marches up; the chunk's six
+#: planes below and above are loaded again by the chunks beside it.
+COLS_Z_CHUNK = 64
 
 
 def momentum_div_plain(ru, rv, rw, u, v, w, invdzc, invdzf,
@@ -119,8 +126,8 @@ def momentum_div(ru, rv, rw, u, v, w, invdzc, invdzf,
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
     outs = [torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device) for _ in range(3)]
     _build.launch("breeze_momentum_div",
-                  [ru, rv, rw, u, v, w, invdzc, invdzf, None, None, *outs],
-                  [nz, ny, nx, 0], [inv_dx, inv_dy], u)
+                  [ru, rv, rw, u, v, w, invdzc, invdzf, *outs],
+                  [nz, ny, nx], [inv_dx, inv_dy], u)
     launches += 1
     return tuple(outs)
 
@@ -160,8 +167,17 @@ def momentum_div_cols(u, v, w, colc, colf, invdzc, invdzf,
     if nx < 4 or ny < 3 or nz < 4:
         raise ValueError("the CUDA kernel needs nx >= 4, ny >= 3, nz >= 4")
     outs = [torch.empty((nz, ny, nx), dtype=u.dtype, device=u.device) for _ in range(3)]
-    _build.launch("breeze_momentum_div",
-                  [None, None, None, u, v, w, invdzc, invdzf, colc, colf, *outs],
-                  [nz, ny, nx, 1], [inv_dx, inv_dy], u)
+    _build.launch("breeze_momentum_div_cols",
+                  [u, v, w, colc, colf, invdzc, invdzf, *outs],
+                  [nz, ny, nx, COLS_Z_CHUNK], [inv_dx, inv_dy], u)
     cols_launches += 1
     return tuple(outs)
+
+
+def cols_kernel_info() -> dict:
+    """The column kernel's resources: shared memory a block (bytes),
+    blocks resident per SM, registers and local (spill) bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().breeze_momentum_div_cols_info(out),
+                 "breeze_momentum_div_cols_info")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers", "local_bytes"), out))

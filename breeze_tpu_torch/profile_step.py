@@ -39,7 +39,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OWN_KERNELS = ("fused_tendency_kernel", "fix_negative_kernel",
                "momentum_div_cols_kernel", "momentum_div_kernel", "div_rho_u_c_kernel",
                "acoustic_substep_kernel", "acoustic_pivot_kernel", "acoustic_close_kernel",
-               "acoustic_k1_kernel", "acoustic_k2_kernel", "closure_nu_kernel",
+               "acoustic_k1_kernel", "acoustic_k2_kernel", "acoustic_k2e_kernel",
+               "closure_nu_kernel",
                "closure_tendencies_kernel", "divergence_kernel", "gradient_correct_kernel")
 BOMEX_ROUTES = {"bomex": {}, "bomex_beta": dict(coriolis=bomex.BETA_PLANE)}
 

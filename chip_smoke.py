@@ -61,9 +61,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 18. a per-layer breakdown of one more moist ρe step;
 19. the anelastic route kernels against their plain versions at the 256³
     BOMEX shapes: the column-momentum kernel on the noisy BOMEX state's
-    velocity windows, the projection kernels on a stage's predicted
-    momenta and that stage's φ, the closure kernel on the moist windows
-    with θᵥ, with both times;
+    velocity windows (with its registers, spill, shared memory a block,
+    blocks per SM and the field passes of its design), the projection
+    kernels on a stage's predicted momenta and that stage's φ, the closure
+    kernel on the moist windows with θᵥ, with both times;
 20. two steps of BOMEX on the β-plane at 64×32×32 through the kernels
     against the same steps through the plain versions on the CPU, as
     phase 4;
@@ -76,12 +77,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
     bubble, noise on all five perturbations), then a 7-substep stage
     through the pair against the plain pair, in float32 and with bfloat16
     carries, and the same stage through K3 in turns with the pair for the
-    A/B, with both kernels' times, bounds and registers;
+    A/B, with both kernels' times and bounds (K2 with the stage's sums, as
+    the split loop runs it, and without), K2's resources and the field
+    passes of its design;
 24. two steps of the noisy bubble at 64×32×32 through the pair on CUDA
     against the same steps through the plain pair on the CPU, as phase 8;
 25. the split slice, 2 warm-up and 10 timed steps each at 256×256×128 of
     the dry bubble and the bfloat16 bubble through the pair
-    (``per_substep_kernels=True``), with the launch counts (14 K1, 14 K2,
+    (``per_substep_kernels=True``), with the launch counts (14 K1, 28 K2,
     no K3 per step), finiteness, the dry path's ∫ρ dV / ∫ρθ dV drift, and
     the dry path's final state against phase 9's (K3) from the same start;
 26. a per-layer breakdown of one more split step.
@@ -209,9 +212,9 @@ OPS_PER_POINT = {
     "closure": 390,            # strains, ν, the θᵥ correction, five flux divergences
     "divergence": 8,
     "gradient_correct": 12,
-    # per substep: A 12 and B 34 (K1); C 35, D 10, E 16 (K2)
+    # per substep: A 12 and B 34 (K1); C 35, D 10, E 16 and the three sums (K2)
     "acoustic_k1": 46,
-    "acoustic_k2": 61,
+    "acoustic_k2": 64,
 }
 
 # The anelastic paths, as bomex_model's Coriolis: the canonical f-plane
@@ -314,9 +317,9 @@ ACOUSTIC_INSTANCE = re.compile(r"acoustic_(substep|pivot|close)_kernelI(f|13__nv
 
 
 def split_label(line: str) -> str:
-    """``acoustic_k1``, ``acoustic_k2[bf16]``, … for a ptxas line naming an
-    instance of the K1/K2 pair."""
-    kernel, storage = re.search(r"acoustic_(k[12])_kernelI(f|13__nv_bfloat16)", line).groups()
+    """``acoustic_k1``, ``acoustic_k2[bf16]``, ``acoustic_k2e``, … for a
+    ptxas line naming an instance of the K1/K2 pair's kernels."""
+    kernel, storage = re.search(r"acoustic_(k[12]e?)_kernelI(f|13__nv_bfloat16)", line).groups()
     return f"acoustic_{kernel}" + ("[bf16]" if storage != "f" else "")
 
 
@@ -822,9 +825,9 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
               "acoustic_k1": acoustic_split.k1_launches,
               "acoustic_k2": acoustic_split.k2_launches}
     # three stages of 3 + 4 + 7 substeps: one launch each of K3's
-    # counterpart and two a stage (the pivots, the closing pass), or two
-    # each of the pair; with moisture ρqᵗ through the scalar kernel once a
-    # stage and its repair once a step
+    # counterpart and two a stage (the pivots, the closing pass), or one
+    # of K1 and two of K2 (the column solve, E) each; with moisture ρqᵗ
+    # through the scalar kernel once a stage and its repair once a step
     split = model.acoustic_config.per_substep_kernels
     plan = C.stage_substep_plan(C.substep_count(model, DT_C), DT_C)
     k3 = sum(n_tau + 2 for n_tau, _ in plan)
@@ -832,7 +835,7 @@ def phase_compressible_slice(model, state, label: str, phase: int = 9,
                   "acoustic_substeps": 0 if split else k3 * STEPS,
                   "fix_negative": STEPS if moist else 0,
                   "acoustic_k1": 14 * STEPS if split else 0,
-                  "acoustic_k2": 14 * STEPS if split else 0}:
+                  "acoustic_k2": 28 * STEPS if split else 0}:
         raise AssertionError(f"the compressible path missed its kernels: {counts}")
     for name in C_NAMES + (("rho_qt",) if moist else ()):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -1120,6 +1123,22 @@ def check_allclose(what: str, pairs, rtol: float, atol: float) -> float:
     return worst
 
 
+def cols_design(shape) -> str:
+    """The column-momentum kernel's design at ``shape``: its field passes
+    through device memory (the three velocity windows read at their
+    interior, the three divergences written) and the floor they give, and
+    how often its ring reads each window's points through L2 (each 32 × 16
+    tile with its 3-point halo, each z chunk with three planes below and
+    above)."""
+    nz, ny, nx = shape
+    chunk = momentum.COLS_Z_CHUNK
+    moved = 6 * 4 * nz * ny * nx
+    ring = (chunk + 6) / chunk * (32 + 6) * (16 + 6) / (32 * 16)
+    return (f"design 6 field passes, {moved / 1e9:.3f} GB, floor "
+            f"{1e3 * moved / HBM_BYTES_PER_S:.3f} ms; the ring reads each window "
+            f"{ring:.2f} times through L2 (z chunk {chunk})")
+
+
 def phase_route_parity(model, state) -> list[dict]:
     """The four kernels of the anelastic routes against their plain versions
     at the 256³ BOMEX shapes, each at its reference test's limit."""
@@ -1153,7 +1172,10 @@ def phase_route_parity(model, state) -> list[dict]:
     entry("momentum_div_cols", "momentum.cu", "momentum.py:309", max_abs,
           lambda: momentum.momentum_div_cols(*margs),
           lambda: momentum.momentum_div_cols_plain(*margs), flat(margs), got, 20)
-    lines[-1] += f", largest-value-relative {rel:.2e}"
+    info = momentum.cols_kernel_info()
+    lines[-1] += (f", largest-value-relative {rel:.2e}; {info['registers']} registers, "
+                  f"{info['local_bytes']} B local, {info['smem_bytes']} B shared a block, "
+                  f"{info['blocks_per_sm']} block(s) per SM; " + cols_design(g.shape))
     del got
 
     # the closure kernel on the moist windows with θᵥ; TestClosureKernel's
@@ -1207,6 +1229,20 @@ def phase_route_parity(model, state) -> list[dict]:
     print(f"[19/{PHASES}] anelastic route kernels at 256^3 BOMEX shapes, each against its "
           "plain version: " + "; ".join(lines))
     return entries
+
+
+def k2_design(carries, damping: bool) -> str:
+    """The field passes a substep of K2's two launches by design (each
+    launch's fields read and written once, the neighbours' Δ(ρθ)′ and θᴸ
+    from L2) and the floor they give: in float32 K1's four outputs, Cᴸ, θᴸ
+    at the faces, G_ρw, the three sums in and out; with the thermal damping
+    θᴸ, and Δ(ρθ)′ written and read; in the storage type ρ′, (ρθ)′, ρw′ in,
+    the five carries out and ρw′ read again by E for its sum
+    (csrc/acoustic_split.cu)."""
+    n, c = carries[0].numel(), carries[0].element_size()
+    moved = n * (4 * (13 + (3 if damping else 0)) + 9 * c)
+    return (f"design {moved / (4 * n):.2f} float32 field passes, {moved / 1e9:.3f} GB, floor "
+            f"{1e3 * moved / HBM_BYTES_PER_S:.3f} ms")
 
 
 def phase_split_parity(device, registers: dict) -> list[dict]:
@@ -1263,10 +1299,20 @@ def phase_split_parity(device, registers: dict) -> list[dict]:
         stage_err = check_rel(f"K1/K2 stage{label}", pairs, limit)
         stage_rel = max(rel_to_max(a, b)[1] for _, a, b in pairs)
         del got, pairs
+        # K2 as the split loop runs it, adding to the stage's sums in place,
+        # and the plain K2 with the three adds the plain loop makes
+        sums = [torch.zeros(g.shape, dtype=g.dtype, device=g.device) for _ in range(3)]
+
+        def k2_sums_plain():
+            for acc, c in zip(sums, acoustic_split.acoustic_k2_plain(*k2_args)[1:4]):
+                acc.add_(c.to(acc.dtype))
+
         times = {"k1": cuda_ms(lambda: acoustic_split.acoustic_k1(*k1_args), 20),
-                 "k2": cuda_ms(lambda: acoustic_split.acoustic_k2(*k2_args), 20),
+                 "k2": cuda_ms(lambda: acoustic_split.acoustic_k2_sums(*k2_args, sums, sums),
+                               20),
+                 "k2_without_sums": cuda_ms(lambda: acoustic_split.acoustic_k2(*k2_args), 20),
                  "k1_plain": cuda_ms(lambda: acoustic_split.acoustic_k1_plain(*k1_args), 3),
-                 "k2_plain": cuda_ms(lambda: acoustic_split.acoustic_k2_plain(*k2_args), 1)}
+                 "k2_plain": cuda_ms(k2_sums_plain, 1)}
         # the A/B in turns: K3, pair, pair, K3
         k3_fn = lambda: acoustic.acoustic_substeps(*stage)
         pair_fn = lambda: acoustic_split.acoustic_substeps_split(*stage)
@@ -1282,25 +1328,32 @@ def phase_split_parity(device, registers: dict) -> list[dict]:
                 ("acoustic_k1", k1_err, times["k1"], times["k1_plain"],
                  bound("acoustic_k1", k1_inputs, k1_ref, g.shape, points)),
                 ("acoustic_k2", k2_err, times["k2"], times["k2_plain"],
-                 bound("acoustic_k2", k2_inputs, k2_out, g.shape, points))):
+                 bound("acoustic_k2", k2_inputs + sums, [*k2_out, *sums], g.shape, points))):
             results[name].append(dict(case="bf16" if label else "float32", max_abs_err=err,
                                       ms=ms, plain_ms=plain_ms,
                                       registers=registers.get(name + label),
                                       stage_ms=stage_ms, stage_max_abs_err=stage_err,
                                       **bnd))
+        results["acoustic_k2"][-1]["ms_without_sums"] = times["k2_without_sums"]
+        info = acoustic_split.k2_kernel_info(g.nz, store == torch.bfloat16)
         lines.append(
             f"{'bfloat16' if label else 'float32'} carries: K1 {times['k1']:.3f} ms (plain "
             f"{times['k1_plain']:.3f}, bound {results['acoustic_k1'][-1]['bound_ms']:.3f}, "
             f"max abs err {k1_err:.3e}, {registers.get('acoustic_k1' + label)}), K2 "
-            f"{times['k2']:.3f} ms (plain {times['k2_plain']:.3f}, bound "
+            f"{times['k2']:.3f} ms with the stage's sums, {times['k2_without_sums']:.3f} "
+            f"without (plain with the sums {times['k2_plain']:.3f}, bound with them "
             f"{results['acoustic_k2'][-1]['bound_ms']:.3f}, max abs err {k2_err:.3e}, relative "
-            f"{k2_rel:.2e}, {registers.get('acoustic_k2' + label)}); 7-substep stage max abs "
+            f"{k2_rel:.2e}; {k2_design(carries, bool(cfg.damping))}; column kernel "
+            f"{info['registers']} registers, "
+            f"{info['local_bytes']} B local, {info['smem_bytes']} B shared a block, "
+            f"{info['blocks_per_sm']} block(s) per SM; E {registers.get('acoustic_k2e' + label)}"
+            f"); 7-substep stage max abs "
             f"err {stage_err:.3e}, relative {stage_rel:.2e} (limit {limit}); stage in turns "
             "K3/pair/pair/K3 "
             + "/".join(f"{t:.3f}" for t in ab)
             + f" ms: pair {pair_ms / n_tau:.3f}, K3 {k3_ms / n_tau:.3f} ms per substep, "
             f"{14 * pair_ms / n_tau:.2f} and {14 * k3_ms / n_tau:.2f} ms per step")
-        del carries, pert, stage, k1_args, k2_args, k1_ref, k2_out
+        del carries, pert, stage, k1_args, k2_args, k1_ref, k2_out, sums
     print(f"[23/{PHASES}] the K1/K2 pair at 256x256x128 on phase 7's stage, against its "
           "plain versions and K3: " + "; ".join(lines))
     del model, caches, G, noise
@@ -1449,7 +1502,8 @@ def main() -> int:
                         "divergence": ("divergence",),
                         "gradient_correct": ("gradient_correct",),
                         "acoustic_k1": ("acoustic_k1", "acoustic_k1[bf16]"),
-                        "acoustic_k2": ("acoustic_k2", "acoustic_k2[bf16]")}
+                        "acoustic_k2": ("acoustic_k2", "acoustic_k2[bf16]", "acoustic_k2e",
+                                        "acoustic_k2e[bf16]")}
     for entry in entries:
         kernel = entry["name"]
         entry["launches"] = int(counts[kernel])

@@ -605,7 +605,7 @@ def test_cuda_acoustic_k2_matches_plain(cuda_device, size, stretched, damping, b
     before = acoustic_split.k2_launches
     got = acoustic_split.acoustic_k2(*args)
     torch.cuda.synchronize()
-    assert acoustic_split.k2_launches == before + 1
+    assert acoustic_split.k2_launches == before + 2     # the column solve, then E
     for p, k in zip((*carries, *k1), kept):
         assert torch.equal(p, k), "K2 wrote an input"
     for name, g, r in zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta"), got,
@@ -630,13 +630,70 @@ def test_cuda_acoustic_split_stage_matches_plain(cuda_device, size, stretched, d
     got = acoustic_split.acoustic_substeps_split(*args)
     torch.cuda.synchronize()
     assert (acoustic_split.k1_launches, acoustic_split.k2_launches, acoustic.launches) == (
-        before[0] + 7, before[1] + 7, before[2])
+        before[0] + 7, before[1] + 14, before[2])
     for name, p, k in zip(acoustic.Perturbations._fields, pert, kept):
         assert torch.equal(p, k), f"the stage wrote its input {name}"
     for name, g, r in zip(acoustic.Perturbations._fields, got,
                           acoustic_split.acoustic_substeps_split_plain(*args)):
         assert g.dtype == r.dtype, name
         assert _rel_to_max(g, r) < (3e-2 if bf16 else 5e-5), name
+
+
+#: K2's edges: a block of its column kernel holds 32 columns of one row over
+#: all levels in 16 groups with runs of at least 4 levels, so nx below 32
+#: (20) and not a multiple of it (40), ny of 3–4 rows (E's D at y−1 wraps
+#: onto few rows), nz small and odd (5: two runs, the last of one level;
+#: 7, 9, 11: the last run short), thermal damping on and off, float32 and
+#: bfloat16, a stage of one substep (its sums from the caller's, which stay
+#: as they were) and one of three (the later sums in place):
+#: ((nx, ny, nz), damping, bf16, n_tau).
+K2_EDGE_CASES = [((20, 3, 5), 0.1, False, 1), ((40, 4, 11), 0.1, False, 1),
+                 ((40, 3, 7), 0.0, False, 1), ((20, 4, 9), 0.1, True, 1),
+                 ((40, 3, 11), 0.0, True, 1), ((20, 3, 11), 0.1, False, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,damping,bf16,n_tau", K2_EDGE_CASES,
+                         ids=[f"{'x'.join(map(str, c[0]))}_{'thermal' if c[1] else 'none'}"
+                              + ("_bf16" if c[2] else "") + f"_n{c[3]}" for c in K2_EDGE_CASES])
+def test_cuda_acoustic_k2_tile_edges_match_plain(cuda_device, size, damping, bf16, n_tau):
+    """K2 at its column kernel's edges on stretched z: one K2 on the plain
+    K1's outputs against the plain K2 (E's D at x = 0 and y = 0 wraps to
+    the last column and row, checked on its own), and a stage through the
+    pair against the plain pair, the sums included; the caller's tensors
+    are left as they were."""
+    model, caches, G, pert = _split_stage(size, True, cuda_device, damping, bf16)
+    cfg, cols, dtau = model.acoustic_config, model.z_columns, 0.5 / 7
+    carries = tuple(pert[:5])
+    k1 = acoustic_split.acoustic_k1_plain(cfg, cols, caches, G, carries, dtau, 1.0)
+    kept = [p.clone() for p in (*pert, *k1)]
+    args = (cfg, cols, caches, G.rho_w, carries, k1, dtau)
+    stage_args = (cfg, cols, caches, G, pert, dtau, n_tau, True)
+    before = (acoustic_split.k1_launches, acoustic_split.k2_launches)
+    got = acoustic_split.acoustic_k2(*args)
+    stage = acoustic_split.acoustic_substeps_split(*stage_args)
+    torch.cuda.synchronize()
+    assert (acoustic_split.k1_launches, acoustic_split.k2_launches) == (
+        before[0] + n_tau, before[1] + 2 + 2 * n_tau)
+    for p, k in zip((*pert, *k1), kept):
+        assert torch.equal(p, k), "K2 or the stage wrote an input"
+    # the limits of the tests above: 5e-5 in float32, 3e-2 for bfloat16
+    limit = 3e-2 if bf16 else 5e-5
+    ref = acoustic_split.acoustic_k2_plain(*args)
+    for name, g, r in zip(("rho", "rho_u", "rho_v", "rho_w", "rho_theta"), got, ref):
+        assert g.dtype == r.dtype == pert.rho.dtype, name
+        assert _rel_to_max(g, r) < limit, name
+        if bf16:
+            assert _mismatch_share(g, r) < BF16_MISMATCH_SHARE, name
+    # ρu′ at x = 0 and ρv′ at y = 0 take D from the last column and row
+    assert _rel_to_max(got[1][:, :, 0], ref[1][:, :, 0]) < limit, "rho_u at x = 0"
+    assert _rel_to_max(got[2][:, 0], ref[2][:, 0]) < limit, "rho_v at y = 0"
+    for name, g, r in zip(acoustic.Perturbations._fields, stage,
+                          acoustic_split.acoustic_substeps_split_plain(*stage_args)):
+        assert g.dtype == r.dtype, name
+        assert _rel_to_max(g, r) < limit, name
+        if bf16 and not name.startswith("sum"):
+            assert _mismatch_share(g, r) < BF16_MISMATCH_SHARE, name
 
 
 @pytest.mark.cuda
@@ -650,10 +707,10 @@ def test_cuda_split_bubble_step_goes_through_the_pair(cuda_device, floattype):
               acoustic_split.k1_launches, acoustic_split.k2_launches)
     state = bt.acoustic_rk3_step(model, state, 0.5)
     torch.cuda.synchronize()
-    # three stages; 3 + 4 + 7 substeps of one K1 and one K2 each, no K3
+    # three stages; 3 + 4 + 7 substeps of one K1 and two K2 launches each, no K3
     assert (momentum.launches - counts[0], advection.launches - counts[1],
             acoustic.launches - counts[2], acoustic_split.k1_launches - counts[3],
-            acoustic_split.k2_launches - counts[4]) == (3, 3, 0, 14, 14)
+            acoustic_split.k2_launches - counts[4]) == (3, 3, 0, 14, 28)
     for name in ("rho", "rho_u", "rho_v", "rho_w", "rho_theta"):
         assert getattr(state, name).dtype == torch.float32, name
         assert bool(torch.isfinite(getattr(state, name)).all()), name
@@ -706,6 +763,37 @@ def test_cuda_momentum_div_cols_matches_plain(cuda_device, size, stretched):
     got = momentum.momentum_div_cols(*margs)
     torch.cuda.synchronize()
     assert momentum.cols_launches == before + 1
+    for name, g, r in zip("uvw", got, momentum.momentum_div_cols_plain(*margs)):
+        if name == "w":
+            g, r = g[1:], r[1:]     # row 0 reads below-wall data; the wall overwrites it
+        # float32 reassociation and FMA contraction: 1e-5 of the largest value
+        assert _rel_to_max(g, r) < 1e-5, name
+
+
+#: The column-momentum kernel's edges: a block holds a 32 × 16 tile of
+#: columns and marches up a chunk of ``COLS_Z_CHUNK`` (64) levels, so nx
+#: below 32 (20) and not a multiple of it (40, 36), ny not a multiple of 16
+#: (5; 17: a second tile of one row; 20), nz below the chunk (13) and above
+#: it but not a multiple (70, 67); z stretched.
+COLS_EDGE_SIZES = [(20, 5, 13), (40, 17, 70), (36, 20, 67)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", COLS_EDGE_SIZES, ids=["x".join(map(str, s))
+                                                       for s in COLS_EDGE_SIZES])
+def test_cuda_momentum_div_cols_tile_edges_match_plain(cuda_device, size):
+    """The column-momentum kernel against its plain version at its tile's
+    and chunk's edges; the inputs are left as they were."""
+    model, _, args = _anelastic(size, True, cuda_device, moist=False)
+    cfg, cols, u, v, w = args[:5]
+    margs = (u, v, w, cols.colc, cols.colf, cols.invdzc, cols.invdzf, cfg.inv_dx, cfg.inv_dy)
+    kept = [t.clone() for t in margs[:7]]
+    before = momentum.cols_launches
+    got = momentum.momentum_div_cols(*margs)
+    torch.cuda.synchronize()
+    assert momentum.cols_launches == before + 1
+    for t, k in zip(margs[:7], kept):
+        assert torch.equal(t, k), "the kernel wrote an input"
     for name, g, r in zip("uvw", got, momentum.momentum_div_cols_plain(*margs)):
         if name == "w":
             g, r = g[1:], r[1:]     # row 0 reads below-wall data; the wall overwrites it
